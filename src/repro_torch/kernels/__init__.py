@@ -1,0 +1,161 @@
+"""Hand-written Hopper kernels for the connected-components hot spots.
+
+Each kernel package ships:
+  * ``csrc/<name>.cu`` — the CUDA C++ kernel for ``sm_90a`` behind a
+    plain C entry point that returns the CUDA error code;
+  * ``<name>/ops.py`` — the wrapper: checks device, dtype, shape and
+    contiguity, allocates outputs and scratch with torch, launches on
+    the current stream, raises on a CUDA error and counts its launches.
+    A tensor on the CPU goes to the plain version instead; a CUDA
+    tensor always goes to the kernel;
+  * ``<name>/ref.py`` — the plain PyTorch version of the same function.
+
+Kernel inventory:
+  * cc_fused   — the WHOLE Fig. 4 segment scan (every hook round and
+                 every compress sweep) in one cooperative launch;
+  * hook       — edge-tiled hook (gather, root chase, scatter-min),
+                 tiles in ascending order;
+  * multi_jump — blocked pointer jumping with continuous write-back,
+                 vertex tiles in ascending order, to a fixpoint.
+
+Build: ``nvcc`` compiles each source into its own shared library (one
+process per source, all started together) under
+``build/repro_torch_kernels/<hash of the sources and flags>/`` at the
+repository root, at first use; ``ctypes`` loads them. Nothing is built
+or loaded when this package is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+SOURCES = ("cc_fused", "hook", "multi_jump")
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build_dir() -> Path:
+    """The build directory for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(p.name for p in CSRC.iterdir()):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> dict:
+    """Compile every kernel library that is not built yet, one ``nvcc``
+    per source, all in parallel. Returns ``{"seconds": wall time,
+    "ptxas": {name: register/shared-memory report}}``; raises with the
+    compiler's output if any source fails."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in SOURCES:
+        lib = out / f"lib{name}.so"
+        if lib.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    reports, failed = {}, []
+    for name, (tmp, lib, proc) in procs.items():
+        text, _ = proc.communicate()
+        reports[name] = text
+        if proc.returncode == 0:
+            os.replace(tmp, lib)
+        else:
+            os.unlink(tmp)
+            failed.append(f"{name}.cu:\n{text}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {"seconds": time.perf_counter() - t0, "ptxas": reports}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu`` (built on first
+    use)."""
+    if name not in _libs:
+        lib = build_dir() / f"lib{name}.so"
+        if not lib.exists():
+            build()
+        cdll = ctypes.CDLL(str(lib))
+        cdll.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        cdll.repro_cuda_error_string.restype = ctypes.c_char_p
+        _libs[name] = cdll
+    return _libs[name]
+
+
+class Kernel:
+    """One C entry point of a kernel library, with its launch count.
+
+    ``launch(*args)`` calls the entry point (arguments as declared in
+    ``argtypes``: pointers and the stream as ``c_void_p``, sizes as
+    ``c_int``/``c_longlong``), raises if it returns a CUDA error, and
+    adds one to ``launches`` only for a launch that was accepted."""
+
+    def __init__(self, source: str, symbol: str, argtypes: list):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def launch(self, *args) -> None:
+        if self._fn is None:
+            lib = library(self.source)
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args)
+        if err != 0:
+            msg = library(self.source).repro_cuda_error_string(err)
+            raise RuntimeError(f"{self.symbol}: CUDA error {err}: "
+                               f"{msg.decode()}")
+        self.launches += 1
+
+
+def check_int32(name: str, t, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous int32 CUDA tensor of ``ndim``
+    dimensions (what every kernel here takes)."""
+    import torch
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {t.shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream_of(t) -> int:
+    """The raw handle of the current stream on ``t``'s device."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
