@@ -1,4 +1,6 @@
-"""Hand-written Hopper kernels for the connected-components hot spots.
+"""Hand-written Hopper kernels for the port's hot spots: connected
+components (cc_fused, hook, multi_jump) and the recsys lookup
+(embedding_bag, segment_reduce).
 
 Each kernel package ships:
   * ``csrc/<name>.cu`` — the CUDA C++ kernel for ``sm_90a`` behind a
@@ -16,7 +18,13 @@ Kernel inventory:
   * hook       — edge-tiled hook (gather, root chase, scatter-min),
                  tiles in ascending order;
   * multi_jump — blocked pointer jumping with continuous write-back,
-                 vertex tiles in ascending order, to a fixpoint.
+                 vertex tiles in ascending order, to a fixpoint;
+  * embedding_bag  — gather rows of a [Vocab, D] table by [B, bag]
+                     indices and sum or mean each bag (fp32 sum, one
+                     rounding to the table dtype);
+  * segment_reduce — sum / min / max of [N, D] rows into [S, D] by
+                     int32 segment ids, identity-initialised, through
+                     an fp32 scratch.
 
 Build: ``nvcc`` compiles each source into its own shared library (one
 process per source, all started together) under
@@ -35,7 +43,8 @@ import tempfile
 import time
 from pathlib import Path
 
-SOURCES = ("cc_fused", "hook", "multi_jump")
+SOURCES = ("cc_fused", "hook", "multi_jump", "embedding_bag",
+           "segment_reduce")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
@@ -141,18 +150,25 @@ class Kernel:
         self.launches += 1
 
 
-def check_int32(name: str, t, ndim: int) -> None:
-    """Raise unless ``t`` is a contiguous int32 CUDA tensor of ``ndim``
-    dimensions (what every kernel here takes)."""
-    import torch
+def check_tensor(name: str, t, dtypes: tuple, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of one of
+    ``dtypes`` with ``ndim`` dimensions."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        want = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{name} must be {want}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {t.shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_int32(name: str, t, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous int32 CUDA tensor of ``ndim``
+    dimensions (what the CC kernels take)."""
+    import torch
+    check_tensor(name, t, (torch.int32,), ndim)
 
 
 def stream_of(t) -> int:

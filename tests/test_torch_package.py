@@ -33,6 +33,11 @@ def test_import_loads_no_jax_and_no_reference():
             "import repro_torch.kernels.cc_fused.ops, repro_torch.kernels.hook.ops\n"
             "import repro_torch.kernels.multi_jump.ops\n"
             "import repro_torch.graphs.generators, repro_torch.core.unionfind\n"
+            "import repro_torch.models.recsys, repro_torch.configs\n"
+            "import repro_torch.configs.dcn_v2, repro_torch.data.pipeline\n"
+            "import repro_torch.launch.steps\n"
+            "import repro_torch.kernels.embedding_bag.ops\n"
+            "import repro_torch.kernels.segment_reduce.ops\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
