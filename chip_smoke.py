@@ -7,7 +7,7 @@ NVIDIA GPU. Run from the repository root with no arguments:
 Phases (any failure exits non-zero before the last line is printed):
 
 1. card and build: the card's name and power limit from ``nvidia-smi``;
-   ``nvcc`` builds the three kernels from ``src/repro_torch/kernels/csrc``;
+   ``nvcc`` builds the six kernels from ``src/repro_torch/kernels/csrc``;
 2. kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them, bit-equal (integer work, tolerance
    0), each timed with CUDA events (median of 3 after a warm-up);
@@ -47,7 +47,32 @@ then the recsys serving slice, DCN-v2 at full width (26 Criteo tables,
     lookup (``interact``) and the tower timed apart, and the device's
     idle share of a step from ``torch.profiler``: one minus the device
     time of its kernels and copies (and of its kernels alone) over the
-    step time of phase 9.
+    step time of phase 9;
+
+then the LM serving slice, gemma2-2b at full width (26 layers, d_model
+2304, 8 query / 4 kv heads of dim 256, vocab 256,000, bf16, random
+weights from a seeded generator):
+
+11. ``flash_attention`` against its plain version on the card: on the
+    actual layer-0 (local, window 4096) and layer-1 (global) q, k, v of
+    an 8192-token prefill, within one bfloat16 ulp of the plain output
+    plus the fp32 order term 1e-5; float32 at a small GQA shape within
+    1e-5; at the per-layer ``prefill_32k`` shape (B = 1, S = 32768) the
+    last 256 query rows against the plain attention of those rows; each
+    timed (CUDA events, median of 3 after a warm-up), and at softcap 0
+    and window 0 beside ``F.scaled_dot_product_attention``;
+12. the serving path: ``Engine(slots=4, prompt_buf=8192,
+    cache_buf=8256)`` serves six requests (prompts of 17 to 8192 tokens,
+    two admitted mid-flight), the kernel's launch count set to 0 just
+    before and read just after (26 per prefill); every emitted token
+    within epsilon (8 bfloat16 ulps of the row's largest |logit|) of the
+    argmax of the teacher-forced ``forward`` over prompt + emitted
+    tokens; agreement with ``generate`` printed, not gated;
+13. serving times: time to first token per prompt length (prefill plus
+    splice), decode ms per step with 4 slots active, tokens/s over the
+    run, the kernel's share of the prefill's device time and the decode
+    step's device time and idle share from ``torch.profiler``, peak
+    device memory.
 
 It prints informative lines, then one JSON line of per-kernel numbers,
 then, as its last line, ``{"ok": true, "device": {...}}``. Without a
@@ -69,6 +94,7 @@ DEVICE = "cuda"
 SCALE = 1.0                        # of the full-scale stand-ins
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device-memory rate
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core peak
 SECTOR = 32                        # bytes a random 4-byte read costs in DRAM
 FULL_SCALE = ("usa-osm", "kron-logn21")
 # table1_scaled(name, scale=0.002, seed=1): (|V|, |E|, s), the reference's
@@ -132,6 +158,16 @@ def bf16_ulp(torch, x):
 def float_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) \
         if got.numel() else 0.0
+
+
+def top_device_ops(events, reps: int, n: int = 6) -> dict:
+    """The ``n`` largest device ops, ms per repetition, by name cut to 60
+    characters; ops whose cut names meet are summed, not overwritten."""
+    ms = {}
+    for e in events:
+        ms[e.key[:60]] = ms.get(e.key[:60], 0.0) + \
+            e.self_device_time_total / (1e3 * reps)
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:n])
 
 
 def recsys_phases(torch, np, dev, rows: dict) -> dict:
@@ -414,14 +450,12 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
         kernel_ms = sum(e.self_device_time_total for e in ev
                         if not e.key.startswith("Mem")) / 3e3
         step_ms = times[f"{s}_ms"]
-        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
         parts.update(device_ms_per_step=device_ms,
                      kernel_ms_per_step=kernel_ms,
                      idle_share=1 - device_ms / step_ms if ev else None,
                      kernel_idle_share=1 - kernel_ms / step_ms if ev
                      else None,
-                     top_device_ops={e.key[:60]: e.self_device_time_total
-                                     / 3e3 for e in top})
+                     top_device_ops=top_device_ops(ev, 3))
         times[f"{s}_breakdown"] = parts
         print(f"breakdown {s}: {parts}")
 
@@ -437,6 +471,332 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
         replaces="src/repro/kernels/segment_reduce/segment_reduce.py:62",
         **sr["sum"], launches=sr_launches, also=[sr["min"], sr["max"]])
     return {"dcn-v2": times}
+
+
+# LM serving slice (phases 11-13): the requests of phase 12, the buffers
+# of its engine, the long prefill shape of phase 11
+LM_PROMPTS = (17, 1000, 4095, 4097, 6000, 8192)
+LM_MAX_NEW = (8, 32, 16, 32, 24, 32)
+LM_PROMPT_BUF, LM_CACHE_BUF = 8192, 8256
+LM_LONG = 32768
+LM_TAIL = 256                      # rows of the long shape held to plain
+LM_EPS_ULPS = 8                    # teacher-forced check, bf16 ulps
+
+
+def attention_pairs(s: int, window: int) -> int:
+    """Unmasked (q, k) pairs of causal attention over positions 0..s-1."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def attention_bound(q, k, window: int) -> tuple[float, str]:
+    """The least time (ms) of one attention call: q, k, v, o moved once
+    over the memory rate, 4 d flops per unmasked pair and query head
+    over the bf16 tensor-core peak."""
+    b, s, hq, d = q.shape
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
+        k.element_size()
+    flops = 4 * d * hq * b * attention_pairs(s, window)
+    by_bytes = bound_ms(nbytes)
+    by_ops = flops / BF16_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def plain_tail(torch, q, k, v, rows: int, window: int, softcap: float):
+    """Plain attention of the last ``rows`` queries only (positions
+    s - rows .. s - 1), fp32, in q's dtype: the whole score matrix of a
+    32k prefill would not fit."""
+    b, s, hq, d = q.shape
+    g = hq // k.shape[2]
+    qt = q[:, s - rows:].float()
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", qt, kf) * d ** -0.5
+    if softcap > 0:
+        sc = softcap * torch.tanh(sc / softcap)
+    qp = torch.arange(s - rows, s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    mask = kp <= qp
+    if window > 0:
+        mask &= (qp - kp) < window
+    p = torch.softmax(torch.where(mask, sc, -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
+    """Phases 11-13: gemma2-2b serving at full width. Adds the
+    ``flash_attention`` row to ``rows``; returns the serving numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.kernels.flash_attention import ops as fa_ops, \
+        ref as fa_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+
+    t0 = time.perf_counter()
+    cfg = gemma2_2b.make_config()
+    params = T.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                    device=dev)
+    torch.cuda.synchronize()
+    print(f"gemma2-2b: {T.param_count(cfg)} parameters, {cfg.dtype}, "
+          f"init {time.perf_counter() - t0:.1f} s")
+    cap = cfg.attn_softcap
+
+    def ulps(got, want):
+        return (got.float() - want.float()).abs() / bf16_ulp(torch, want)
+
+    def check_close(got, want, what: str) -> dict:
+        """Within one bf16 ulp of plain plus the fp32 order term 1e-5."""
+        err = (got.float() - want.float()).abs()
+        u = ulps(got, want)
+        ok = bool((err <= bf16_ulp(torch, want) + 1e-5).all())
+        res = dict(max_abs_err=float(err.max()), max_ulp=float(u.max()),
+                   n_over_1_ulp=int((u > 1).sum()),
+                   finite=bool(got.isfinite().all()))
+        check(ok and res["finite"], f"flash_attention {what}: {res}")
+        return res
+
+    # -- 11. flash_attention vs plain at the path's shapes -----------------
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, LM_PROMPT_BUF)
+    toks = torch.from_numpy(prompt.astype(np.int32)).to(dev)[None]
+    captured = []
+    launch = L.flash_attention
+
+    def capture(q, k, v, **kw):
+        captured.append((q, k, v, kw))
+        return launch(q, k, v, **kw)
+
+    L.flash_attention = capture
+    try:
+        T.forward_hidden({**params, "layers": params["layers"][:2]}, toks,
+                         cfg)
+    finally:
+        L.flash_attention = launch
+    check([c[3]["window"] for c in captured] == [cfg.window, 0],
+          "layers 0 and 1 are not the local and global layer")
+    fa = {}
+    for name, (q, k, v, kw) in zip(("local_8192", "global_8192"), captured):
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        want = fa_ref.ref_flash_attention(q, k, v, sm_scale=kw["sm_scale"],
+                                          causal=True, window=kw["window"],
+                                          softcap=kw["softcap"])
+        torch.cuda.synchronize()
+        b_ms, by = attention_bound(q, k, kw["window"])
+        fa[name] = dict(
+            shape=f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} bf16, "
+                  f"window {kw['window']}, softcap {kw['softcap']}, layer "
+                  f"{0 if kw['window'] else 1} of a {LM_PROMPT_BUF}-token "
+                  "prefill",
+            **check_close(got, want, name),
+            ms=time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw)),
+            plain_ms=time_ms(torch, lambda: fa_ref.ref_flash_attention(
+                q, k, v, sm_scale=kw["sm_scale"], causal=True,
+                window=kw["window"], softcap=kw["softcap"])),
+            bound_ms=b_ms, bound_by=by, library_ms=None,
+            library="none: no PyTorch call applies a logit softcap")
+        print(f"flash_attention {name} ({card}): {fa[name]}")
+        del got, want
+
+    # softcap 0, window 0: the function scaled_dot_product_attention computes
+    q, k, v, _ = captured[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ref.ref_flash_attention(q, k, v, sm_scale=q.shape[-1] ** -0.5)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    torch.cuda.synchronize()
+    b_ms, by = attention_bound(q, k, 0)
+    fa["global_8192_nocap"] = dict(
+        shape="global_8192_nocap: layer-1 q, k, v, window 0, softcap 0",
+        **check_close(got, want, "global_8192_nocap"),
+        library_max_ulp=float(ulps(lib, want).max()),
+        ms=time_ms(torch, lambda: fa_ops.flash_attention(q, k, v)),
+        plain_ms=time_ms(torch, lambda: fa_ref.ref_flash_attention(
+            q, k, v, sm_scale=q.shape[-1] ** -0.5)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        library="F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True) on [B, H, S, d] copies",
+        bound_ms=b_ms, bound_by=by)
+    print(f"flash_attention global_8192_nocap ({card}): "
+          f"{fa['global_8192_nocap']}")
+    del captured, got, want, lib, qt, kt, vt
+
+    # float32 at a small GQA shape with ragged tails
+    g = torch.Generator(dev).manual_seed(2)
+    q32, k32, v32 = (torch.randn((2, 300, h, 256), generator=g, device=dev)
+                     for h in (8, 4, 4))
+    for window in (0, 64):
+        got = fa_ops.flash_attention(q32, k32, v32, window=window,
+                                     softcap=cap)
+        want = fa_ref.ref_flash_attention(q32, k32, v32, sm_scale=1 / 16,
+                                          window=window, softcap=cap)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= 1e-5, f"flash_attention f32 window {window}: {err}")
+        print(f"flash_attention f32 [2, 300, 8/4, 256] window {window}: "
+              f"max_abs_err {err}")
+    del q32, k32, v32
+
+    # the per-layer prefill_32k shape, the tail held to plain
+    g = torch.Generator(dev).manual_seed(3)
+    ql = torch.randn((1, LM_LONG, 8, 256), generator=g, device=dev).bfloat16()
+    kl, vl = (torch.randn((1, LM_LONG, 4, 256), generator=g,
+                          device=dev).bfloat16() for _ in range(2))
+    for name, window, c in (("local_32768", cfg.window, cap),
+                            ("global_32768", 0, cap),
+                            ("global_32768_nocap", 0, 0.0)):
+        got = fa_ops.flash_attention(ql, kl, vl, window=window, softcap=c)
+        want = plain_tail(torch, ql, kl, vl, LM_TAIL, window, c)
+        torch.cuda.synchronize()
+        b_ms, by = attention_bound(ql, kl, window)
+        fa[name] = dict(
+            shape=f"{name}: q {tuple(ql.shape)} k {tuple(kl.shape)} bf16 "
+                  f"(random), window {window}, softcap {c}; last {LM_TAIL} "
+                  "rows held to plain",
+            **check_close(got[:, -LM_TAIL:], want, name),
+            ms=time_ms(torch, lambda: fa_ops.flash_attention(
+                ql, kl, vl, window=window, softcap=c)),
+            plain_ms=None, plain="not measured: the plain score matrix "
+                                 "would take 34 GB",
+            bound_ms=b_ms, bound_by=by, library_ms=None)
+        if c == 0 and window == 0:
+            qt, kt, vt = (x.transpose(1, 2).contiguous()
+                          for x in (ql, kl, vl))
+            fa[name]["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+            del qt, kt, vt
+        print(f"flash_attention {name} ({card}): {fa[name]}")
+        del got, want
+    del ql, kl, vl
+
+    # -- 12. the serving path at full width, launches counted --------------
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in LM_PROMPTS]
+    eng = E.Engine(params, cfg, slots=4, prompt_buf=LM_PROMPT_BUF,
+                   cache_buf=LM_CACHE_BUF)
+    for p, n in zip(prompts, LM_MAX_NEW):
+        eng.submit(p, max_new=n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    fa_launches = fa_ops.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_tokens = sum(len(r.out_tokens) for r in done)
+    print(f"serving run ({card}): {len(done)} requests, {n_tokens} tokens in "
+          f"{run_s:.2f} s; flash_attention launches {fa_launches}; peak "
+          f"device memory {peak:.2f} GiB")
+    check(len(done) == len(LM_PROMPTS), "not every request finished")
+    check(fa_launches == cfg.n_layers * len(LM_PROMPTS),
+          f"flash_attention launched {fa_launches} times, expected "
+          f"{cfg.n_layers} per prefill")
+    by_uid = sorted(done, key=lambda r: r.uid)
+    worst, agree = 0.0, []
+    for r in by_uid:
+        out = np.asarray(r.out_tokens, np.int32)
+        check(len(out) == r.max_new and bool(((out >= 0) & (
+            out < cfg.padded_vocab)).all()), f"request {r.uid} tokens")
+        seq = np.concatenate([r.prompt, out[:-1]])
+        logits = T.forward(params, torch.from_numpy(seq).to(dev)[None],
+                           cfg)[0, len(r.prompt) - 1:]
+        check(bool(logits.isfinite().all()), f"request {r.uid}: logits "
+                                             "not finite")
+        top = logits.max(dim=-1).values
+        chosen = logits[torch.arange(len(out), device=dev),
+                        torch.from_numpy(out).long().to(dev)]
+        margin = (top - chosen) / bf16_ulp(torch, logits.abs().max(
+            dim=-1).values)
+        worst = max(worst, float(margin.max()))
+        check(bool((margin <= LM_EPS_ULPS).all()),
+              f"request {r.uid}: a token {float(margin.max())} bf16 ulps "
+              "below the teacher-forced argmax")
+        del logits
+        gen = E.generate(params, cfg, r.prompt[None], max_new=len(out))[0]
+        agree.append(float((gen == out).mean()))
+    print(f"teacher-forced check: every token within {LM_EPS_ULPS} bf16 "
+          f"ulps of the argmax; worst margin {worst:.3f} ulps; agreement "
+          f"with generate per request {agree}")
+
+    # -- 13. serving times --------------------------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ttft = {}
+    for p in prompts:
+        def first_token(p=p):
+            toks = np.zeros((1, LM_PROMPT_BUF), np.int32)
+            toks[0, :len(p)] = p
+            one = T.init_cache(cfg, 1, LM_CACHE_BUF, device=dev)
+            logits, one = E._prefill(
+                params, torch.from_numpy(toks).to(dev), one,
+                torch.tensor([len(p)], dtype=torch.int32, device=dev), cfg)
+            E._void_padding(one, [len(p)])
+            E._splice(eng.cache, one, 0)
+            return int(E.greedy(logits[:, len(p) - 1])[0])
+        ttft[len(p)] = time_ms(torch, first_token)
+    lengths = torch.tensor([LM_PROMPTS[i] + LM_MAX_NEW[i] for i in
+                            range(4)], dtype=torch.int32, device=dev)
+    last = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def decode_step():
+        logits, _ = E._decode(params, last, eng.cache, lengths, cfg)
+        return E.greedy(logits).cpu()
+    decode_ms = time_ms(torch, decode_step, reps=10)
+    toks = np.zeros((1, LM_PROMPT_BUF), np.int32)
+
+    def prefill():
+        E._prefill(params, torch.from_numpy(toks).to(dev),
+                   T.init_cache(cfg, 1, LM_CACHE_BUF, device=dev),
+                   torch.tensor([LM_PROMPT_BUF], dtype=torch.int32,
+                                device=dev), cfg)
+
+    def device_profile(fn, reps: int):
+        """Device time per call of ``fn`` (kernels and copies, device-side
+        events only), that of the flash kernel, and the top ops."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU
+              and e.self_device_time_total > 0]
+        total = sum(e.self_device_time_total for e in ev) / (1e3 * reps)
+        flash = sum(e.self_device_time_total for e in ev
+                    if "flash_kernel" in e.key) / (1e3 * reps)
+        return total, flash, top_device_ops(ev, reps)
+
+    device_ms, flash_ms, top_prefill = device_profile(prefill, 1)
+    decode_device_ms, _, top_decode = device_profile(decode_step, 3)
+    times = {
+        "ttft_ms": ttft, "decode_ms_per_step_4_slots": decode_ms,
+        "run_s": run_s, "tokens": n_tokens, "tokens_per_s": n_tokens / run_s,
+        "prefill_device_ms": device_ms, "prefill_flash_ms": flash_ms,
+        "flash_share_of_prefill": flash_ms / device_ms if device_ms else None,
+        "prefill_top_device_ops": top_prefill,
+        "decode_device_ms_per_step": decode_device_ms,
+        "decode_idle_share": 1 - decode_device_ms / decode_ms,
+        "decode_top_device_ops": top_decode,
+        "peak_gib": peak, "worst_margin_ulps": worst,
+        "generate_agreement": agree, "card": card}
+    print(f"lm serving ({card}): {times}")
+
+    rows["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:102",
+        **fa["global_8192_nocap"], launches=fa_launches,
+        also=[fa[k] for k in fa if k != "global_8192_nocap"])
+    return {"gemma2-2b": times}
 
 
 def main() -> int:
@@ -658,12 +1018,15 @@ def main() -> int:
 
     # -- 6.-10. the recsys serving slice ------------------------------------
     e2e.update(recsys_phases(torch, np, dev, rows))
+
+    # -- 11.-13. the LM serving slice -----------------------------------------
+    e2e.update(lm_phases(torch, np, dev, rows, card))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [rows[k] for k in (
         "cc_fused", "hook", "multi_jump", "embedding_bag",
-        "segment_reduce")]}))
+        "segment_reduce", "flash_attention")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

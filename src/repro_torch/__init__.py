@@ -6,11 +6,15 @@
   * the recsys serving path: DCN-v2 ``serve`` and ``retrieval`` cells
     (``launch.steps.build_cell``, ``models.recsys``, ``configs``,
     ``data.pipeline``), with the embedding-bag and segment-reduce
-    kernels behind its lookups.
+    kernels behind its lookups;
+  * the LM serving path: the GQA transformer (gemma2-2b, qwen2.5-32b)
+    behind the continuous-batching ``serving.engine.Engine`` and
+    ``generate`` (``models.transformer``, ``configs``), with the
+    flash-attention kernel behind every prefill attention.
 
 It imports ``torch`` and ``numpy`` (``scipy`` lazily) and nothing of
 ``jax`` or ``repro``. Entry points run on CUDA unless the caller passes
-``device="cpu"``. The recsys modules load on import of their own
+``device="cpu"``. The recsys and LM modules load on import of their own
 submodules, not of this package.
 """
 from repro_torch.core.cc import (CCResult, solve_hostloop, solve_pallas,

@@ -1,8 +1,8 @@
 """Architecture registry: one module per assigned architecture, the
-port of ``repro.configs``. The same ten ids; only ``dcn-v2`` (the
-recsys family) is ported so far, and ``get_arch`` raises
-``NotImplementedError`` for the others, naming the ROADMAP queue that
-ports them.
+port of ``repro.configs``. The same ten ids; ``dcn-v2`` (recsys) and
+the two GQA LMs ``gemma2-2b`` and ``qwen2.5-32b`` are ported so far,
+and ``get_arch`` raises ``NotImplementedError`` for the others, naming
+the ROADMAP queue that ports them.
 
 A ported module exposes what the launcher consumes:
 
@@ -12,40 +12,42 @@ A ported module exposes what the launcher consumes:
   make_config()             full-size model config
   make_smoke_config()       reduced same-family config (CPU tests)
   input_specs(shape)        {name: (shape, torch dtype)} for the step fn
-  step_kind(shape)          "train" | "serve" | "retrieval" | ...
+  step_kind(shape)          "train" | "prefill" | "decode" | "serve"
+                            | "retrieval"
   skip_reason(shape)        None, or why the cell is skipped
 """
 from __future__ import annotations
 
 import importlib
 
-# the family of each id that is not ported yet
+# what each id that is not ported yet waits for
 _UNPORTED = {
-    "qwen2.5-32b": "lm",
-    "gemma2-2b": "lm",
-    "minicpm3-4b": "lm",
-    "grok-1-314b": "lm",
-    "phi3.5-moe-42b-a6.6b": "lm",
+    "minicpm3-4b": "mla",
+    "grok-1-314b": "moe",
+    "phi3.5-moe-42b-a6.6b": "moe",
     "nequip": "gnn",
     "gatedgcn": "gnn",
     "graphsage-reddit": "gnn",
     "gin-tu": "gnn",
 }
 _QUEUE = {
-    "lm": "ROADMAP A11, the LM serving slice (with the flash_attention "
-          "kernel)",
+    "mla": "ROADMAP A11, the MLA LM config (multi-head latent attention)",
+    "moe": "ROADMAP A11, the MoE LM configs (the MoE FFN)",
     "gnn": "ROADMAP A11, GNN forward through the segment_reduce kernel",
 }
-_MODULES = {"dcn-v2": "repro_torch.configs.dcn_v2"}
-
-ARCH_IDS = (*_UNPORTED, *_MODULES)          # the reference's order
+_MODULES = {"qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+            "gemma2-2b": "repro_torch.configs.gemma2_2b",
+            "dcn-v2": "repro_torch.configs.dcn_v2"}
+ARCH_IDS = ("qwen2.5-32b", "gemma2-2b", "minicpm3-4b", "grok-1-314b",
+            "phi3.5-moe-42b-a6.6b", "nequip", "gatedgcn",
+            "graphsage-reddit", "gin-tu", "dcn-v2")   # the reference's order
 
 
 def get_arch(name: str):
     if name in _UNPORTED:
-        family = _UNPORTED[name]
+        kind = _UNPORTED[name]
         raise NotImplementedError(
-            f"{name} ({family}) is not ported yet: {_QUEUE[family]}")
+            f"{name} ({kind}) is not ported yet: {_QUEUE[kind]}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list(ARCH_IDS)}")
     return importlib.import_module(_MODULES[name])

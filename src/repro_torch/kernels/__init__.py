@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels for the port's hot spots: connected
-components (cc_fused, hook, multi_jump) and the recsys lookup
-(embedding_bag, segment_reduce).
+components (cc_fused, hook, multi_jump), the recsys lookup
+(embedding_bag, segment_reduce) and LM prefill attention
+(flash_attention).
 
 Each kernel package ships:
   * ``csrc/<name>.cu`` — the CUDA C++ kernel for ``sm_90a`` behind a
@@ -24,7 +25,9 @@ Kernel inventory:
                      rounding to the table dtype);
   * segment_reduce — sum / min / max of [N, D] rows into [S, D] by
                      int32 segment ids, identity-initialised, through
-                     an fp32 scratch.
+                     an fp32 scratch;
+  * flash_attention — online-softmax grouped-query attention (causal,
+                      sliding window, logit softcap), fp32 accumulation.
 
 Build: ``nvcc`` compiles each source into its own shared library (one
 process per source, all started together) under
@@ -44,7 +47,7 @@ import time
 from pathlib import Path
 
 SOURCES = ("cc_fused", "hook", "multi_jump", "embedding_bag",
-           "segment_reduce")
+           "segment_reduce", "flash_attention")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"

@@ -1,10 +1,33 @@
-"""Shared neural-net layers: the part of ``repro.models.layers`` that
-the recsys model needs (initialisers and the plain MLP tower). Random
-initialisation always draws from an explicit ``torch.Generator``."""
+"""Shared neural-net layers, the part of ``repro.models.layers`` that
+the recsys model (initialisers, the plain MLP tower) and the LM serving
+path (norms, rotary embeddings, attention, gated MLPs) need. Random
+initialisation always draws from an explicit ``torch.Generator``.
+
+Rounding follows the reference: norms and rotary embeddings compute in
+float32 and cast back; attention scores are float32 whatever the model
+dtype. Prefill attention (every ``Sq > 1`` call over fresh keys at
+positions 0..) runs through the flash-attention kernel; the rest, the
+decode step over the caches above all, through ``attention_dense``.
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+NEG_INF = -1e30        # the reference's mask constant
+
+
+def from_numpy(a) -> torch.Tensor:
+    """A host array to a tensor; an ml_dtypes bfloat16 array (what a
+    JAX bfloat16 array becomes in numpy) keeps its exact bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
 
 
 def normal_init(shape, std: float, dtype: torch.dtype, *,
@@ -36,3 +59,140 @@ def mlp_apply(params, x: torch.Tensor, act: str = "relu") -> torch.Tensor:
         if i < n - 1:
             x = torch.relu(x) if act == "relu" else F.silu(x)
     return x
+
+
+# --------------------------------------------------------------------------
+# Norms and rotary position embeddings
+# --------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+             plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm in float32, cast back to x's dtype; ``plus_one`` uses the
+    (1 + w) parameterisation (gemma)."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    w = weight.float()
+    if plus_one:
+        w = 1.0 + w
+    return (xf * w).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x [B, S, H, d]; positions [S] (shared) or [B, S] (per request).
+    Rotates the (first, second) halves, the half-rotation convention,
+    in float32."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, device=x.device)
+    angles = positions[..., None].float() * freqs            # [.., S, d/2]
+    if positions.dim() == 1:
+        cos, sin = torch.cos(angles)[None, :, None], \
+            torch.sin(angles)[None, :, None]
+    else:
+        cos, sin = torch.cos(angles)[:, :, None], \
+            torch.sin(angles)[:, :, None]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap > 0.0 else x
+
+
+def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                          window: int) -> torch.Tensor:
+    """Causal (+ sliding ``window``, 0 = none) mask. Positions [S] give
+    [Sq, Sk]; [B, S] give [B, Sq, Sk]. Negative k positions mark empty
+    cache slots and are always masked."""
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    mask = (q >= k) & (k >= 0)
+    if window > 0:
+        mask &= (q - k) < window
+    return mask
+
+
+def attention_dense(q, k, v, *, q_positions, k_positions, window: int,
+                    attn_softcap: float, scale: float, kv_mask=None
+                    ) -> torch.Tensor:
+    """The direct S x S scores path (the reference's ``_attention_dense``):
+    q [B, Sq, Hq, d], k, v [B, Sk, Hkv, d]. Scores in float32 (the
+    operands are upcast, as the reference's products accumulate in f32),
+    p rounded to v's dtype before the PV product, one rounding of the
+    output to q's dtype."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    s = softcap(s, attn_softcap)
+    mask = attention_scores_mask(q_positions, k_positions, window)
+    if mask.dim() == 2:
+        mask = mask[None]
+    if kv_mask is not None:
+        mask = mask & kv_mask[:, None, :]
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, q_positions: torch.Tensor,
+                         k_positions: torch.Tensor, window: int = 0,
+                         attn_softcap: float = 0.0,
+                         sm_scale: float | None = None,
+                         kv_mask: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """GQA attention. q [B, Sq, Hq, d]; k, v [B, Sk, Hkv, d].
+
+    A prefill over fresh keys (``Sq > 1``, shared 1-D positions,
+    ``k_positions is q_positions``, no ``kv_mask``) is exactly the
+    flash kernel's contract: positions 0.. on both sides, causal, the
+    layer's window and softcap. It goes to ``flash_attention`` (the
+    kernel on a CUDA tensor, its plain version on a CPU one). Everything
+    else, the decode step over the caches' stored positions above all,
+    goes to ``attention_dense``."""
+    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+    if (q.shape[1] > 1 and q_positions.dim() == 1
+            and k_positions is q_positions and kv_mask is None):
+        return flash_attention(q, k, v, sm_scale=scale, causal=True,
+                               window=int(window), softcap=attn_softcap)
+    return attention_dense(q, k, v, q_positions=q_positions,
+                           k_positions=k_positions, window=int(window),
+                           attn_softcap=attn_softcap, scale=scale,
+                           kv_mask=kv_mask)
+
+
+# --------------------------------------------------------------------------
+# Gated MLPs
+# --------------------------------------------------------------------------
+
+def gated_mlp_apply(params: dict, x: torch.Tensor,
+                    act: str = "silu") -> torch.Tensor:
+    """SwiGLU (``silu``) / GeGLU (``gelu``, the tanh approximation, as
+    ``jax.nn.gelu`` defaults to) feed-forward."""
+    gate = x @ params["w_gate"]
+    up = x @ params["w_up"]
+    a = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
+    return (a * up) @ params["w_down"]
+
+
+def gated_mlp_params(d_model: int, d_ff: int, dtype: torch.dtype, *,
+                     generator: torch.Generator, device=None) -> dict:
+    g = {"generator": generator, "device": device}
+    return {
+        "w_gate": normal_init((d_model, d_ff), d_model ** -0.5, dtype, **g),
+        "w_up": normal_init((d_model, d_ff), d_model ** -0.5, dtype, **g),
+        "w_down": normal_init((d_ff, d_model), d_ff ** -0.5, dtype, **g),
+    }

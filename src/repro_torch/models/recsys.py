@@ -200,16 +200,6 @@ def init(cfg: RecsysConfig, *, generator: torch.Generator | None = None,
     })
 
 
-def from_numpy(a) -> torch.Tensor:
-    """A host array to a tensor; an ml_dtypes bfloat16 array (what a
-    JAX bfloat16 array becomes in numpy) keeps its exact bits."""
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(a.copy())
-
-
 def params_from_reference(tree: dict, cfg: RecsysConfig, *,
                           device) -> DCNv2:
     """A ``DCNv2`` holding exactly the values of the reference's
@@ -219,7 +209,7 @@ def params_from_reference(tree: dict, cfg: RecsysConfig, *,
     dev = resolve_device(device)
 
     def conv(a):
-        return from_numpy(a).to(dev)
+        return L.from_numpy(a).to(dev)
 
     model = DCNv2(cfg, {
         "table": conv(tree["table"]),

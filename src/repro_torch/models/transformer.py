@@ -1,0 +1,499 @@
+"""The LM transformer, the port of ``repro.models.transformer`` for the
+grouped-query (GQA) architectures: gemma2 (alternating local sliding-
+window and global layers, logit softcaps, post-norms, embedding
+scaling, tied embeddings, GeGLU) and qwen2.5 (QKV bias, SwiGLU).
+
+Parameters are plain dicts of tensors: ``embed`` [padded_vocab, D],
+``layers`` (one dict per layer, in order), ``final_norm`` and, unless
+the embedding is tied, ``lm_head``. The reference stacks its layers
+and ``lax.scan``s them, with a (local, global) pair as the scan unit;
+here the layers are a list walked by a loop, layer 2i being block i's
+``local`` half and 2i + 1 its ``global`` half (``params_from_reference``
+does the unstacking).
+
+Serving (``forward_with_cache``): requests are RIGHT-padded to the
+prompt buffer; every position's cache slot is its index (full caches)
+or index % W (the ring caches of gemma2's local layers). Prefill
+attends with the fresh keys, through the flash-attention kernel, and
+only WRITES the cache; decode reads the cache through its stored
+per-slot positions (-1 = empty), through the dense path. Unlike the
+reference, the cache is updated IN PLACE and returned.
+
+MLA (minicpm3) and MoE (grok-1, phi3.5-moe) are not ported: their
+configs raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.graphs.device import resolve_device
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    window: int = 0                   # sliding window width (local layers)
+    layer_pattern: str = "global"     # "global" | "local_global"
+    attention: str = "gqa"
+    moe: Optional[Any] = None
+    post_norm: bool = False           # gemma2-style post-norms
+    embed_scale: bool = False         # multiply embedding by sqrt(D)
+    tie_embed: bool = False           # lm_head = embed.T (gemma2)
+    act: str = "silu"
+    dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.attention != "gqa":
+            raise NotImplementedError(
+                f"{self.name}: attention={self.attention!r} is not ported "
+                "yet (ROADMAP A11, the MLA LM config)")
+        if self.moe is not None:
+            raise NotImplementedError(
+                f"{self.name}: the MoE FFN is not ported yet (ROADMAP A11, "
+                "the MoE LM configs)")
+        if self.layer_pattern not in ("global", "local_global"):
+            raise ValueError(f"unknown layer_pattern {self.layer_pattern!r}")
+        if self.layer_pattern == "local_global" and self.n_layers % 2:
+            raise ValueError("local_global needs an even layer count")
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding/head rows padded to a multiple of 256, as the
+        reference pads them; the padded rows are initialised too and
+        take part in every argmax."""
+        return ((self.vocab + 255) // 256) * 256
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    def is_local(self, layer: int) -> bool:
+        """Whether ``layer`` is a local (ring-cached) layer."""
+        return self.layer_pattern == "local_global" and layer % 2 == 0
+
+    def layer_window(self, layer: int) -> int:
+        """The sliding window of ``layer`` (0 = full attention)."""
+        if self.layer_pattern == "local_global":
+            return self.window if layer % 2 == 0 else 0
+        return self.window
+
+
+# ==========================================================================
+# Parameters
+# ==========================================================================
+
+def _layer_shapes(cfg: LMConfig) -> dict:
+    d, kv = cfg.d_model, cfg.n_kv_heads * cfg.head_dim
+    attn = {"wq": (d, cfg.q_dim), "wk": (d, kv), "wv": (d, kv),
+            "wo": (cfg.q_dim, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=(cfg.q_dim,), bk=(kv,), bv=(kv,))
+    p = {"ln1": (d,), "ln2": (d,), "attn": attn,
+         "mlp": {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+                 "w_down": (cfg.d_ff, d)}}
+    if cfg.post_norm:
+        p.update(ln1_post=(d,), ln2_post=(d,))
+    return p
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """The parameter tree with a shape at each leaf (allocates
+    nothing)."""
+    out = {"embed": (cfg.padded_vocab, cfg.d_model),
+           "layers": [_layer_shapes(cfg) for _ in range(cfg.n_layers)],
+           "final_norm": (cfg.d_model,)}
+    if not cfg.tie_embed:
+        out["lm_head"] = (cfg.d_model, cfg.padded_vocab)
+    return out
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """``{dotted name: leaf}`` of a parameter or cache tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def param_count(cfg: LMConfig) -> int:
+    return sum(math.prod(s) for s in flatten(param_shapes(cfg)).values())
+
+
+def init(cfg: LMConfig, *, generator: torch.Generator | None = None,
+         device=None) -> dict:
+    """Random parameters on ``device`` (CUDA unless given; raises
+    without CUDA unless ``device="cpu"``) with the reference's
+    initialisation: embedding N(0, 0.02²), projections N(0, 1/fan_in),
+    biases and norm weights 0. Every draw comes from ``generator`` (a
+    generator of that device seeded 0 when None)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    g = {"generator": generator, "device": dev}
+    d = cfg.d_model
+    zeros = lambda *s: torch.zeros(s, dtype=cfg.dtype, device=dev)
+
+    def layer():
+        kv = cfg.n_kv_heads * cfg.head_dim
+        attn = {"wq": L.normal_init((d, cfg.q_dim), d ** -0.5, cfg.dtype, **g),
+                "wk": L.normal_init((d, kv), d ** -0.5, cfg.dtype, **g),
+                "wv": L.normal_init((d, kv), d ** -0.5, cfg.dtype, **g),
+                "wo": L.normal_init((cfg.q_dim, d), cfg.q_dim ** -0.5,
+                                    cfg.dtype, **g)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(cfg.q_dim), bk=zeros(kv), bv=zeros(kv))
+        p = {"ln1": zeros(d), "ln2": zeros(d), "attn": attn,
+             "mlp": L.gated_mlp_params(d, cfg.d_ff, cfg.dtype, **g)}
+        if cfg.post_norm:
+            p.update(ln1_post=zeros(d), ln2_post=zeros(d))
+        return p
+
+    out = {"embed": L.normal_init((cfg.padded_vocab, d), 0.02, cfg.dtype,
+                                  **g),
+           "layers": [layer() for _ in range(cfg.n_layers)],
+           "final_norm": zeros(d)}
+    if not cfg.tie_embed:
+        out["lm_head"] = L.normal_init((d, cfg.padded_vocab), d ** -0.5,
+                                       cfg.dtype, **g)
+    return out
+
+
+def params_from_reference(tree: dict, cfg: LMConfig, *, device) -> dict:
+    """The port's parameters holding exactly the values of the
+    reference's tree (``embed``, ``blocks`` stacked [n_stack, ...],
+    ``final_norm``, ``lm_head``) given as host arrays. For
+    ``local_global`` block i's ``local`` half becomes layer 2i and its
+    ``global`` half layer 2i + 1. Raises if a shape or dtype differs
+    from ``cfg``'s."""
+    dev = resolve_device(device)
+
+    def conv(a):
+        return L.from_numpy(a).to(dev)
+
+    def unstack(blocks, i):
+        if isinstance(blocks, dict):
+            return {k: unstack(v, i) for k, v in blocks.items()}
+        return conv(blocks[i])
+
+    if cfg.layer_pattern == "local_global":
+        layers = []
+        for i in range(cfg.n_layers // 2):
+            layers += [unstack(tree["blocks"]["local"], i),
+                       unstack(tree["blocks"]["global"], i)]
+    else:
+        layers = [unstack(tree["blocks"], i) for i in range(cfg.n_layers)]
+    out = {"embed": conv(tree["embed"]), "layers": layers,
+           "final_norm": conv(tree["final_norm"])}
+    if "lm_head" in tree:
+        out["lm_head"] = conv(tree["lm_head"])
+    got, want = flatten(out), flatten(param_shapes(cfg))
+    if {k: tuple(v.shape) for k, v in got.items()} != want:
+        raise ValueError("parameter shapes do not match the config")
+    for name, t in got.items():
+        if t.dtype != cfg.dtype:
+            raise ValueError(f"{name} is {t.dtype}, the config says "
+                             f"{cfg.dtype}")
+    return out
+
+
+# ==========================================================================
+# Forward pass
+# ==========================================================================
+
+def _gqa_project_kv(p: dict, cfg: LMConfig, x: torch.Tensor,
+                    positions: torch.Tensor):
+    """x [B, S, D] -> roped k, v [B, S, Hkv, dh]."""
+    b, s, _ = x.shape
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return L.apply_rope(k, positions, cfg.rope_theta), v
+
+
+def _gqa_attention(p: dict, cfg: LMConfig, x: torch.Tensor,
+                   positions: torch.Tensor, window: int, kv_override=None,
+                   k_positions=None) -> torch.Tensor:
+    """x [B, S, D]. ``kv_override``: (k, v), already roped, from the
+    caller (a prefill's fresh keys or a decode cache); ``positions`` may
+    be [S] or per-request [B, S]."""
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = L.apply_rope(q.reshape(b, s, cfg.n_heads, cfg.head_dim), positions,
+                     cfg.rope_theta)
+    if kv_override is None:
+        k, v = _gqa_project_kv(p, cfg, x, positions)
+        k_positions = positions
+    else:
+        k, v = kv_override
+    out = L.multi_head_attention(
+        q, k, v, q_positions=positions, k_positions=k_positions,
+        window=window, attn_softcap=cfg.attn_softcap)
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
+def _ffn_block(p: dict, cfg: LMConfig, x: torch.Tensor, a: torch.Tensor
+               ) -> torch.Tensor:
+    """The residual around the attention output ``a``, then the MLP's."""
+    if cfg.post_norm:
+        a = L.rms_norm(a, p["ln1_post"], cfg.norm_eps, plus_one=True)
+    x = x + a
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=cfg.post_norm)
+    f = L.gated_mlp_apply(p["mlp"], h, cfg.act)
+    if cfg.post_norm:
+        f = L.rms_norm(f, p["ln2_post"], cfg.norm_eps, plus_one=True)
+    return x + f
+
+
+def _layer_apply(p: dict, cfg: LMConfig, x: torch.Tensor,
+                 positions: torch.Tensor, window: int) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norm)
+    return _ffn_block(p, cfg, x, _gqa_attention(p["attn"], cfg, h,
+                                                positions, window))
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: LMConfig
+           ) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """Final norm, head product in the model dtype, then float32 and
+    the final softcap (in place on the fresh float32 logits)."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps,
+                   plus_one=cfg.post_norm)
+    head = params["embed"].T if cfg.tie_embed else params["lm_head"]
+    logits = (x @ head).float()
+    if cfg.final_softcap > 0.0:
+        logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
+    return logits
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig
+                   ) -> torch.Tensor:
+    """tokens [B, S] -> hidden states [B, S, D] before the final norm."""
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=x.device)
+    for i, lp in enumerate(params["layers"]):
+        x = _layer_apply(lp, cfg, x, positions, cfg.layer_window(i))
+    return x
+
+
+@torch.no_grad()
+def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
+            ) -> torch.Tensor:
+    """tokens [B, S] -> float32 logits [B, S, padded_vocab]. (The
+    reference also returns the MoE aux loss, 0 for these models.)"""
+    return _logits(params, forward_hidden(params, tokens, cfg), cfg)
+
+
+# ==========================================================================
+# KV-cache serving path (prefill + decode)
+# ==========================================================================
+
+def cache_spec(cfg: LMConfig, batch: int, buf: int) -> dict:
+    """The decode cache as a tree of ``(shape, dtype)`` (allocates
+    nothing): ``layers`` (per layer ``k``, ``v`` [batch, n, Hkv, dh],
+    n = min(window, buf) for a local layer's ring, else buf), ``pos``
+    [batch, buf] and, for local_global, ``pos_local`` [batch, ring] int32:
+    the sequence position held in each slot (-1 = empty)."""
+    def layer(i):
+        n = min(cfg.window, buf) if cfg.is_local(i) else buf
+        s = ((batch, n, cfg.n_kv_heads, cfg.head_dim), cfg.dtype)
+        return {"k": s, "v": s}
+
+    out = {"layers": [layer(i) for i in range(cfg.n_layers)],
+           "pos": ((batch, buf), torch.int32)}
+    if cfg.layer_pattern == "local_global":
+        out["pos_local"] = ((batch, min(cfg.window, buf)), torch.int32)
+    return out
+
+
+def init_cache(cfg: LMConfig, batch: int, buf: int, *, device=None
+               ) -> dict:
+    """An empty decode cache for ``batch`` request slots of ``buf``
+    positions on ``device`` (CUDA unless given): k, v zero, positions
+    -1."""
+    dev = resolve_device(device)
+
+    def make(leaf):
+        shape, dtype = leaf
+        if dtype == torch.int32:
+            return torch.full(shape, -1, dtype=dtype, device=dev)
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    spec = cache_spec(cfg, batch, buf)
+    out = {k: make(v) for k, v in spec.items() if k != "layers"}
+    out["layers"] = [{k: make(v) for k, v in lc.items()}
+                     for lc in spec["layers"]]
+    return out
+
+
+def _write_full(buf_arr: torch.Tensor, new: torch.Tensor, start: int
+                ) -> torch.Tensor:
+    """Write new [B, S, ...] at slots [start, start + S), in place."""
+    buf_arr[:, start:start + new.shape[1]] = new.to(buf_arr.dtype)
+    return buf_arr
+
+
+class _RingWrites:
+    """Scatter into ring caches at per-request slots ``positions % W``
+    ([B, S] positions). Negative positions are DROPPED: right-padded
+    prefill garbage must not be written at all, since slot g % W is
+    shared with the real position g - W, which may still be inside the
+    window. The kept (request, index) pairs are found once (one host
+    sync) and reused by every layer's write."""
+
+    def __init__(self, positions: torch.Tensor):
+        self.positions = positions
+        self._kept = None
+
+    def write(self, buf_arr: torch.Tensor, new: torch.Tensor
+              ) -> torch.Tensor:
+        if self._kept is None:
+            self._kept = (self.positions >= 0).nonzero(as_tuple=True)
+        bi, si = self._kept
+        slots = self.positions[bi, si].long() % buf_arr.shape[1]
+        buf_arr[bi, slots] = new[bi, si].to(buf_arr.dtype)
+        return buf_arr
+
+
+def _ring_prefill_pos(prefill_len: int, width: int, batch: int,
+                      device=None) -> torch.Tensor:
+    """Prefill write positions for a ring of ``width`` slots when no
+    per-request lengths were given: the last ``width`` buffer positions,
+    everything earlier dropped (-1)."""
+    idx = torch.arange(prefill_len, dtype=torch.int32, device=device)[None]
+    pos = torch.where(idx >= prefill_len - width, idx, -1)
+    return pos.expand(batch, prefill_len)
+
+
+def _attn_cached(p: dict, cfg: LMConfig, h: torch.Tensor,
+                 positions: torch.Tensor, window: int, lc: dict,
+                 k_pos: torch.Tensor, prefill_len: int,
+                 ring: _RingWrites | None = None) -> torch.Tensor:
+    """Attention through the cache ``lc`` (written in place). Prefill
+    (``prefill_len`` > 0, positions = arange(P)): write the fresh keys
+    (a ring only at ``ring``'s positions) and attend with them: an early
+    prefill query needs keys older than a ring holds. Decode (positions
+    [B, 1]): write, then attend over the cache through ``k_pos``."""
+    k_new, v_new = _gqa_project_kv(p["attn"], cfg, h, positions)
+    if prefill_len > 0:
+        if window > 0:
+            if ring is None:
+                ring = _RingWrites(_ring_prefill_pos(
+                    prefill_len, lc["k"].shape[1], h.shape[0], h.device))
+            ring.write(lc["k"], k_new)
+            ring.write(lc["v"], v_new)
+        else:
+            _write_full(lc["k"], k_new, 0)
+            _write_full(lc["v"], v_new, 0)
+        return _gqa_attention(p["attn"], cfg, h, positions, window,
+                              kv_override=(k_new, v_new),
+                              k_positions=positions)
+    if window > 0:
+        ring.write(lc["k"], k_new)
+        ring.write(lc["v"], v_new)
+    else:
+        bi = torch.arange(h.shape[0], device=h.device)[:, None]
+        lc["k"][bi, positions.long()] = k_new.to(lc["k"].dtype)
+        lc["v"][bi, positions.long()] = v_new.to(lc["v"].dtype)
+    return _gqa_attention(p["attn"], cfg, h, positions, window,
+                          kv_override=(lc["k"], lc["v"]), k_positions=k_pos)
+
+
+def _layer_apply_cached(p: dict, cfg: LMConfig, x: torch.Tensor,
+                        positions: torch.Tensor, window: int, lc: dict,
+                        k_pos: torch.Tensor, prefill_len: int,
+                        ring: _RingWrites | None = None) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norm)
+    return _ffn_block(p, cfg, x, _attn_cached(p, cfg, h, positions, window,
+                                              lc, k_pos, prefill_len, ring))
+
+
+@torch.no_grad()
+def forward_with_cache(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+                       cache: dict, positions: torch.Tensor,
+                       valid_len: torch.Tensor | None = None):
+    """Cache-threaded forward; returns (float32 logits [B, S, V], the
+    cache, updated in place).
+
+    Prefill: tokens [B, P], positions = arange(P) (1-D). ``valid_len``
+    ([B] int32) gives the true prompt lengths of RIGHT-padded requests:
+    ring caches then take only positions [len_b - W, len_b) per
+    request, so padding garbage never evicts a real in-window key.
+    Without it every request is taken as full-length. Logits come for
+    all P positions (at P = 8192 and a 256,000-row vocab, 8.4 GB of
+    float32).
+    Decode: tokens [B, 1], positions [B, 1] (per request)."""
+    prefill_len = tokens.shape[1] if positions.dim() == 1 else 0
+    x = _embed(params, tokens, cfg)
+    dev = x.device
+    ring = None
+    k_pos_local = None
+    if prefill_len > 0:
+        p_idx = torch.arange(prefill_len, dtype=torch.int32, device=dev)
+        idx_b = p_idx.expand(tokens.shape[0], prefill_len)
+        _write_full(cache["pos"], idx_b, 0)
+        if valid_len is None:
+            vl = torch.full((tokens.shape[0], 1), prefill_len,
+                            dtype=torch.int32, device=dev)
+        else:
+            vl = torch.as_tensor(valid_len, dtype=torch.int32,
+                                 device=dev).reshape(-1, 1)
+        if "pos_local" in cache:
+            w = cache["pos_local"].shape[1]
+            ring = _RingWrites(torch.where((idx_b >= vl - w) & (idx_b < vl),
+                                           idx_b, -1))
+            ring.write(cache["pos_local"], ring.positions)
+            k_pos_local = cache["pos_local"]
+        elif cfg.window > 0:
+            # uniform-window models keep a full-size cache (one slot per
+            # position, no eviction): only the padding writes are masked
+            ring = _RingWrites(torch.where(idx_b < vl, idx_b, -1))
+    else:
+        bi = torch.arange(tokens.shape[0], device=dev)[:, None]
+        cache["pos"][bi, positions.long()] = positions.to(torch.int32)
+        ring = _RingWrites(positions)
+        if "pos_local" in cache:
+            ring.write(cache["pos_local"], positions)
+            k_pos_local = cache["pos_local"]
+
+    for i, (lp, lc) in enumerate(zip(params["layers"], cache["layers"])):
+        local = cfg.is_local(i)
+        x = _layer_apply_cached(
+            lp, cfg, x, positions, cfg.layer_window(i), lc,
+            k_pos_local if local else cache["pos"], prefill_len,
+            ring if local or cfg.layer_pattern == "global" else None)
+    return _logits(params, x, cfg), cache

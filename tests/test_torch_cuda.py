@@ -10,8 +10,11 @@ The CC kernels do integer work: every comparison is exact (tolerance
 all bit-equal; float32 sums are taken in another order by the kernel and
 by torch, within the bound of two summation orders; a bfloat16 sum is an
 fp32 sum rounded once on both sides, within one bfloat16 ulp (plus the
-fp32 order's error). This file imports no JAX, so it runs where only
-PyTorch is installed.
+fp32 order's error). The flash-attention kernel: float32 within 1e-5 of
+its plain version (fp32 sums in another order); bfloat16 inputs give
+fp32 results of two orders, each rounded once, so within one bfloat16
+ulp of the plain output plus that same 1e-5. This file imports no JAX,
+so it runs where only PyTorch is installed.
 """
 import dataclasses
 
@@ -30,8 +33,11 @@ from repro_torch.kernels.hook import ops as hook_ops, ref as hook_ref
 from repro_torch.kernels.embedding_bag import ops as eb_ops, ref as eb_ref
 from repro_torch.kernels.multi_jump import ops as mj_ops, ref as mj_ref
 from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
-from repro_torch.configs import dcn_v2
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+from repro_torch.configs import dcn_v2, gemma2_2b, qwen2_5_32b
 from repro_torch.models import recsys
+from repro_torch.models import transformer as T
+from repro_torch.serving import engine as E
 
 pytestmark = pytest.mark.cuda
 
@@ -320,3 +326,99 @@ def test_recsys_path_launches_the_kernels(dev):
                                         combine)
         assert bool(((out.float() - want.float()).abs()
                      <= 2 * bf16_ulp(want)).all())
+
+
+# (B, Sq = Sk, Hq, Hkv, d): ragged tails (no multiple of the 64-row
+# tile), grouped heads, every head dim the kernel takes
+FA_CASES = [(2, 100, 4, 2, 16), (1, 130, 8, 4, 256), (2, 77, 4, 4, 64),
+            (1, 65, 2, 1, 128), (1, 50, 2, 2, 32), (3, 1, 4, 2, 64)]
+FA_VARIANTS = [(True, 0, 0.0), (True, 16, 0.0), (True, 0, 30.0),
+               (True, 33, 50.0), (False, 0, 0.0), (False, 20, 50.0)]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("causal,window,cap", FA_VARIANTS)
+@pytest.mark.parametrize("b,s,hq,hkv,d", FA_CASES)
+def test_flash_attention_kernel_matches_plain(dev, b, s, hq, hkv, d, causal,
+                                             window, cap, dtype):
+    g = torch.Generator(dev).manual_seed(s * d + hq)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
+               for h in (hq, hkv, hkv))
+    before = fa_ops.KERNEL.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap)
+    want = fa_ref.ref_flash_attention(q, k, v, sm_scale=d ** -0.5,
+                                      causal=causal, window=window,
+                                      softcap=cap)
+    torch.cuda.synchronize()
+    assert fa_ops.KERNEL.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs()
+    tol = 1e-5 if dtype == torch.float32 else bf16_ulp(want) + 1e-5
+    assert bool((err <= tol).all()), float(err.max())
+
+
+def test_flash_attention_kernel_longer_keys_than_queries(dev):
+    """Sk > Sq: the kv tail past the last query is masked by causality
+    and, without it, read to Sk."""
+    g = torch.Generator(dev).manual_seed(1)
+    q = torch.randn((1, 40, 2, 64), generator=g, device=dev)
+    k, v = (torch.randn((1, 90, 1, 64), generator=g, device=dev)
+            for _ in range(2))
+    for causal in (True, False):
+        got = fa_ops.flash_attention(q, k, v, causal=causal, softcap=50.0)
+        want = fa_ref.ref_flash_attention(q, k, v, sm_scale=0.125,
+                                          causal=causal, softcap=50.0)
+        torch.cuda.synchronize()
+        assert bool(((got - want).abs() <= 1e-5).all())
+
+
+def test_flash_attention_wrapper_rejects_bad_tensors(dev):
+    q = torch.zeros((1, 8, 4, 16), device=dev)
+    k = torch.zeros((1, 8, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(torch.zeros((1, 8, 4, 24), device=dev),
+                               k[..., :12].repeat(1, 1, 1, 2),
+                               k[..., :12].repeat(1, 1, 1, 2))
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        fa_ops.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_ops.flash_attention(q, k.cpu(), k.cpu())
+
+
+@pytest.mark.parametrize("mod", (gemma2_2b, qwen2_5_32b))
+def test_smoke_engine_on_card_matches_port_on_cpu(dev, mod):
+    """The smoke-config engine (float32) on the card gives the port's
+    CPU tokens, and every prefill launches the kernel once per layer."""
+    cfg = mod.make_smoke_config()
+    params = T.init(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+    # non-zero norm weights: at the reference's zero init qwen2.5's
+    # logits are all 0
+    g = torch.Generator().manual_seed(5)
+    for name, t in T.flatten(params).items():
+        if "ln" in name or name == "final_norm":
+            t.normal_(0.0, 0.3, generator=g)
+
+    def to_dev(tree):
+        if isinstance(tree, dict):
+            return {k: to_dev(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_dev(v) for v in tree]
+        return tree.to(dev)
+
+    on_dev = to_dev(params)
+    outs = []
+    for p in (params, on_dev):
+        eng = E.Engine(p, cfg, slots=2, prompt_buf=16, cache_buf=40)
+        rng = np.random.default_rng(4)
+        for _ in range(5):
+            eng.submit(rng.integers(1, cfg.vocab, int(rng.integers(3, 15))),
+                       max_new=int(rng.integers(3, 8)))
+        before = fa_ops.KERNEL.launches
+        outs.append([(r.uid, r.out_tokens) for r in eng.run()])
+        launches = fa_ops.KERNEL.launches - before
+    assert launches == 5 * cfg.n_layers
+    assert outs[1] == outs[0]

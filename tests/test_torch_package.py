@@ -38,6 +38,9 @@ def test_import_loads_no_jax_and_no_reference():
             "import repro_torch.launch.steps\n"
             "import repro_torch.kernels.embedding_bag.ops\n"
             "import repro_torch.kernels.segment_reduce.ops\n"
+            "import repro_torch.kernels.flash_attention.ops\n"
+            "import repro_torch.models.transformer, repro_torch.serving.engine\n"
+            "import repro_torch.configs.gemma2_2b, repro_torch.configs.qwen2_5_32b\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"

@@ -115,7 +115,7 @@ def test_registry_ids_and_unported_archs():
     assert (tdcn.ARCH_ID, tdcn.FAMILY, tdcn.SHAPES, tdcn.SHAPE_DEFS) == (
         jdcn.ARCH_ID, jdcn.FAMILY, jdcn.SHAPES, jdcn.SHAPE_DEFS)
     for arch in tconfigs.ARCH_IDS:
-        if arch == "dcn-v2":
+        if arch in ("dcn-v2", "gemma2-2b", "qwen2.5-32b"):     # ported
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             tconfigs.get_arch(arch)

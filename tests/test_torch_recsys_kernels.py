@@ -24,7 +24,7 @@ from repro.kernels.segment_reduce import ops as jsr_ops
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.segment_reduce import ops as sr_ops
 from repro_torch.kernels.segment_reduce.ref import reduce_identity
-from repro_torch.models.recsys import from_numpy
+from repro_torch.models.layers import from_numpy
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
