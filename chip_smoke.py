@@ -53,21 +53,36 @@ then the LM serving slice, gemma2-2b at full width (26 layers, d_model
 2304, 8 query / 4 kv heads of dim 256, vocab 256,000, bf16, random
 weights from a seeded generator):
 
-11. ``flash_attention`` against its plain version on the card: on the
-    actual layer-0 (local, window 4096) and layer-1 (global) q, k, v of
-    an 8192-token prefill, within one bfloat16 ulp of the plain output
-    plus the fp32 order term 1e-5; float32 at a small GQA shape within
-    1e-5; at the per-layer ``prefill_32k`` shape (B = 1, S = 32768) the
-    last 256 query rows against the plain attention of those rows; each
-    timed (CUDA events, median of 3 after a warm-up), and at softcap 0
-    and window 0 beside ``F.scaled_dot_product_attention``;
+11. ``flash_attention`` against its plain version on the card. First
+    the Hopper body as built: each instantiation's ptxas line
+    (registers, spills: none allowed) and the HGMMA instructions in the
+    library's SASS (``cuobjdump -sass``: at least one). Then, on the
+    Hopper body (bfloat16, d = 64, 128, 256), within
+    ``ref.p_rounding_bound`` of the fp32 plain output at every element
+    (one ulp + 2^-8 (P @ |V|) + 1e-5: that body rounds P to bfloat16 for
+    the PV product, as the reference model does) and within
+    ``ref.p_rounding_norm_bound`` as a whole (that worst case grows with
+    the row's length, the normwise bound does not): the actual layer-0
+    (local, window 4096) and layer-1 (global) q, k, v of an 8192-token
+    prefill;
+    qwen2.5-32b's grouping at d = 128 (random [1, 8192, 40/8, 128],
+    global, softcap 0); at the per-layer ``prefill_32k`` shape (B = 1,
+    S = 32768) the last 256 query rows against the plain attention of
+    those rows. On the FMA body: float32 at a small GQA shape within
+    1e-5, bfloat16 at d = 32 within one bfloat16 ulp + 1e-5. Each row
+    timed (CUDA events, median of 3 after a warm-up) with its achieved
+    TFLOP/s, its share of the bound and the body that ran; at softcap 0
+    and window 0 beside ``F.scaled_dot_product_attention``, at softcap
+    50 beside ``flex_attention`` (compiled, a tanh softcap ``score_mod``
+    and a causal / window block mask: the same function);
 12. the serving path: ``Engine(slots=4, prompt_buf=8192,
     cache_buf=8256)`` serves six requests (prompts of 17 to 8192 tokens,
-    two admitted mid-flight), the kernel's launch count set to 0 just
-    before and read just after (26 per prefill); every emitted token
-    within epsilon (8 bfloat16 ulps of the row's largest |logit|) of the
-    argmax of the teacher-forced ``forward`` over prompt + emitted
-    tokens; agreement with ``generate`` printed, not gated;
+    two admitted mid-flight), the kernel's launch counts set to 0 just
+    before and read just after (26 per prefill, all on the Hopper
+    body); every emitted token within epsilon (8 bfloat16 ulps of the
+    row's largest |logit|) of the argmax of the teacher-forced
+    ``forward`` over prompt + emitted tokens; agreement with
+    ``generate`` printed, not gated;
 13. serving times: time to first token per prompt length (prefill plus
     splice), decode ms per step with 4 slots active, tokens/s over the
     run, the kernel's share of the prefill's device time and the decode
@@ -82,6 +97,7 @@ no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -149,12 +165,6 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
                                    else "operations")
 
 
-def bf16_ulp(torch, x):
-    """One bfloat16 ulp at |x| (7 stored mantissa bits)."""
-    e = torch.floor(torch.log2(torch.clamp(x.float().abs(), min=2.0**-126)))
-    return torch.exp2(e - 7)
-
-
 def float_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) \
         if got.numel() else 0.0
@@ -180,6 +190,7 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
                                            recsys_batches)
     from repro_torch.kernels.embedding_bag import ops as eb_ops, \
         ref as eb_ref
+    from repro_torch.kernels.flash_attention.ref import ulp_bf16
     from repro_torch.kernels.segment_reduce import ops as sr_ops, \
         ref as sr_ref
     from repro_torch.launch import steps
@@ -235,7 +246,7 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
         if bag == 1:
             check(equal, f"embedding_bag {name} differs from the gather")
         ulps = float(((got.float() - want.float()).abs()
-                      / bf16_ulp(torch, want)).max())
+                      / ulp_bf16(want)).max())
         check(ulps <= 1.0, f"embedding_bag {name}: {ulps} ulp from plain")
         idx64 = idx.long()
         ms_bound, by = bound(b * bag * (4 + cfg.embed_dim * esize)
@@ -282,7 +293,7 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
             cnt = torch.from_numpy(lengths).to(dev).to(want.dtype)
             want = want / cnt[:, None]
         ulps = float(((got.float() - want.float()).abs()
-                      / bf16_ulp(torch, want)).max())
+                      / ulp_bf16(want)).max())
         # sum: one rounding of two fp32 orders, 1 ulp; mean: that ulp
         # divided by a count that is not a power of two, plus the
         # division's own rounding, 2 ulp
@@ -311,7 +322,7 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
                         <= 1e-5 * (1 + want32.abs())).all()),
                   "segment_reduce sum (fp32) out of tolerance")
             check(bool(((got.float() - want.float()).abs()
-                        <= bf16_ulp(torch, want)).all()),
+                        <= ulp_bf16(want)).all()),
                   "segment_reduce sum (bf16) over 1 ulp")
         else:
             check(torch.equal(got32, want32) and torch.equal(got, want),
@@ -490,39 +501,56 @@ def attention_pairs(s: int, window: int) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
+def attention_flops(q, window: int) -> int:
+    """4 d flops (QK and PV) per unmasked pair and query head."""
+    b, s, hq, d = q.shape
+    return 4 * d * hq * b * attention_pairs(s, window)
+
+
 def attention_bound(q, k, window: int) -> tuple[float, str]:
     """The least time (ms) of one attention call: q, k, v, o moved once
-    over the memory rate, 4 d flops per unmasked pair and query head
-    over the bf16 tensor-core peak."""
-    b, s, hq, d = q.shape
+    over the memory rate, its flops over the bf16 tensor-core peak."""
     nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
         k.element_size()
-    flops = 4 * d * hq * b * attention_pairs(s, window)
     by_bytes = bound_ms(nbytes)
-    by_ops = flops / BF16_OPS_PER_S * 1e3
+    by_ops = attention_flops(q, window) / BF16_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
 
-def plain_tail(torch, q, k, v, rows: int, window: int, softcap: float):
-    """Plain attention of the last ``rows`` queries only (positions
-    s - rows .. s - 1), fp32, in q's dtype: the whole score matrix of a
-    32k prefill would not fit."""
-    b, s, hq, d = q.shape
-    g = hq // k.shape[2]
-    qt = q[:, s - rows:].float()
-    kf = k.float().repeat_interleave(g, dim=2)
-    vf = v.float().repeat_interleave(g, dim=2)
-    sc = torch.einsum("bqhd,bkhd->bhqk", qt, kf) * d ** -0.5
-    if softcap > 0:
-        sc = softcap * torch.tanh(sc / softcap)
-    qp = torch.arange(s - rows, s, device=q.device)[:, None]
-    kp = torch.arange(s, device=q.device)[None, :]
-    mask = kp <= qp
-    if window > 0:
-        mask &= (qp - kp) < window
-    p = torch.softmax(torch.where(mask, sc, -1e30), dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+def wgmma_build_report(torch, kernels) -> dict:
+    """The Hopper attention body as built: each instantiation's ptxas
+    lines (registers, spills) and the HGMMA instructions in the
+    library's SASS. Fails on a spill or on SASS without HGMMA."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    lines = kernels.ptxas_report("flash_attention").splitlines()
+    report = {}
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and "flash_wgmma_kernel" in line:
+            name = line.split("flash_wgmma_kernelILi")[1].split("E")[0]
+            spill, regs = lines[i + 1].strip(), lines[i + 2].strip()
+            regs = regs.removeprefix("ptxas info    : ")
+            print(f"  ptxas flash_wgmma_kernel<{name}>: {spill}; {regs}")
+            report[f"d{name}"] = f"{spill}; {regs}"
+            check(" 0 bytes spill stores, 0 bytes spill loads" in spill,
+                  f"flash_wgmma_kernel<{name}> spills: {spill}")
+    check(sorted(report) == sorted(f"d{d}" for d in fa_ops.WGMMA_HEAD_DIMS),
+          f"ptxas report lacks a Hopper body: {sorted(report)}")
+    for line in lines:
+        if "Performance Loss" in line and "flash_wgmma" in line:
+            print(f"  ptxas: {line.strip()}")
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    lib = kernels.build_dir() / "libflash_attention.so"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hgmma = [ln.split()[1] for ln in sass.splitlines() if "HGMMA." in ln]
+    kinds = sorted(set(hgmma))
+    print(f"  SASS of libflash_attention.so: {len(hgmma)} HGMMA "
+          f"instructions ({', '.join(kinds)})")
+    check(len(hgmma) > 0, "no HGMMA instruction in the attention library")
+    report["hgmma"] = len(hgmma)
+    return report
 
 
 def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
@@ -530,6 +558,7 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
     ``flash_attention`` row to ``rows``; returns the serving numbers."""
     import torch.nn.functional as F
 
+    from repro_torch import kernels
     from repro_torch.configs import gemma2_2b
     from repro_torch.kernels.flash_attention import ops as fa_ops, \
         ref as fa_ref
@@ -547,20 +576,76 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
     cap = cfg.attn_softcap
 
     def ulps(got, want):
-        return (got.float() - want.float()).abs() / bf16_ulp(torch, want)
+        return (got.float() - want.float()).abs() / fa_ref.ulp_bf16(want)
 
-    def check_close(got, want, what: str) -> dict:
-        """Within one bf16 ulp of plain plus the fp32 order term 1e-5."""
+    def check_close(got, want, what: str, bound=None,
+                    norm_bound=None) -> dict:
+        """Within ``bound`` at every element and within ``norm_bound`` in
+        the 2-norm (the Hopper body's ``p_rounding_bound`` and
+        ``p_rounding_norm_bound``) or, where none is given, within one
+        bf16 ulp of plain plus the fp32 order term 1e-5 (the FMA
+        body)."""
         err = (got.float() - want.float()).abs()
         u = ulps(got, want)
-        ok = bool((err <= bf16_ulp(torch, want) + 1e-5).all())
+        gate = fa_ref.ulp_bf16(want) + 1e-5 if bound is None else bound
         res = dict(max_abs_err=float(err.max()), max_ulp=float(u.max()),
                    n_over_1_ulp=int((u > 1).sum()),
+                   gate="1 bf16 ulp + 1e-5" if bound is None else
+                   "p_rounding_bound and p_rounding_norm_bound",
+                   max_err_over_gate=float((err / gate).max()),
                    finite=bool(got.isfinite().all()))
-        check(ok and res["finite"], f"flash_attention {what}: {res}")
+        ok = bool((err <= gate).all()) and res["finite"]
+        if norm_bound is not None:
+            res["norm_err_over_gate"] = float(err.norm()) / norm_bound
+            ok = ok and res["norm_err_over_gate"] <= 1.0
+        check(ok, f"flash_attention {what}: {res}")
         return res
 
+    def flex_library(q, k, v, scale: float, window: int, softcap: float):
+        """One call of ``flex_attention`` (compiled, not used by the
+        port) for the same function: causal, the window as a block mask,
+        cap * tanh(s / cap) as a ``score_mod``, GQA in place, on
+        [B, H, S, d] copies. Returns (the call, its output as
+        [B, S, H, d])."""
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def keep(b, h, qi, ki):
+            return (qi >= ki) & (qi - ki < window) if window else qi >= ki
+
+        def cap(score, b, h, qi, ki):
+            return softcap * torch.tanh(score / softcap)
+
+        mask = create_block_mask(keep, None, None, q.shape[1], k.shape[1],
+                                 device=q.device)
+
+        def call():
+            return flex(qt, kt, vt, score_mod=cap, block_mask=mask,
+                        scale=scale, enable_gqa=True)
+
+        return call, call().transpose(1, 2)
+
+    def add_flex(row: dict, call, out, want, bound) -> None:
+        lib_ms = time_ms(torch, call)
+        row.update(library_ms=lib_ms, library_ratio=row["ms"] / lib_ms,
+                   library="flex_attention (torch.compile; tanh softcap "
+                           "score_mod, causal / window block mask, "
+                           "enable_gqa) on [B, H, S, d] copies",
+                   library_max_err_over_gate=float(
+                       ((out.float() - want.float()).abs() / bound).max()))
+
+    def body(q) -> str:
+        return "wgmma" if fa_ops.body_of(q.dtype, q.shape[-1]) is \
+            fa_ops.WGMMA else "fma"
+
+    def rates(q, window: int, ms: float, b_ms: float) -> dict:
+        return dict(tflops=attention_flops(q, window) / ms / 1e9,
+                    share_of_bound=b_ms / ms, body=body(q))
+
     # -- 11. flash_attention vs plain at the path's shapes -----------------
+    from torch.nn.attention.flex_attention import create_block_mask, \
+        flex_attention
+    flex = torch.compile(flex_attention, dynamic=False)
+    wgmma_build = wgmma_build_report(torch, kernels)
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, LM_PROMPT_BUF)
     toks = torch.from_numpy(prompt.astype(np.int32)).to(dev)[None]
     captured = []
@@ -581,52 +666,106 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
     fa = {}
     for name, (q, k, v, kw) in zip(("local_8192", "global_8192"), captured):
         got = fa_ops.flash_attention(q, k, v, **kw)
-        want = fa_ref.ref_flash_attention(q, k, v, sm_scale=kw["sm_scale"],
-                                          causal=True, window=kw["window"],
-                                          softcap=kw["softcap"])
+        pkw = dict(sm_scale=kw["sm_scale"], causal=True,
+                   window=kw["window"], softcap=kw["softcap"])
+        want = fa_ref.ref_flash_attention(q, k, v, **pkw)
+        bound = fa_ref.p_rounding_bound(q, k, v, **pkw)
+        norm_bound = fa_ref.p_rounding_norm_bound(q, k, v, **pkw)
         torch.cuda.synchronize()
         b_ms, by = attention_bound(q, k, kw["window"])
+        ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw))
         fa[name] = dict(
             shape=f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} bf16, "
                   f"window {kw['window']}, softcap {kw['softcap']}, layer "
                   f"{0 if kw['window'] else 1} of a {LM_PROMPT_BUF}-token "
                   "prefill",
-            **check_close(got, want, name),
-            ms=time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw)),
+            **check_close(got, want, name, bound, norm_bound), ms=ms,
             plain_ms=time_ms(torch, lambda: fa_ref.ref_flash_attention(
-                q, k, v, sm_scale=kw["sm_scale"], causal=True,
-                window=kw["window"], softcap=kw["softcap"])),
-            bound_ms=b_ms, bound_by=by, library_ms=None,
-            library="none: no PyTorch call applies a logit softcap")
+                q, k, v, **pkw)),
+            bound_ms=b_ms, bound_by=by, **rates(q, kw["window"], ms, b_ms))
+        add_flex(fa[name], *flex_library(q, k, v, kw["sm_scale"],
+                                         kw["window"], kw["softcap"]),
+                 want, bound)
         print(f"flash_attention {name} ({card}): {fa[name]}")
-        del got, want
+        del got, want, bound
 
     # softcap 0, window 0: the function scaled_dot_product_attention computes
     q, k, v, _ = captured[1]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    scale = q.shape[-1] ** -0.5
     got = fa_ops.flash_attention(q, k, v)
-    want = fa_ref.ref_flash_attention(q, k, v, sm_scale=q.shape[-1] ** -0.5)
+    want = fa_ref.ref_flash_attention(q, k, v, sm_scale=scale)
+    bound = fa_ref.p_rounding_bound(q, k, v, sm_scale=scale)
+    norm_bound = fa_ref.p_rounding_norm_bound(q, k, v, sm_scale=scale)
     lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                          enable_gqa=True).transpose(1, 2)
     torch.cuda.synchronize()
     b_ms, by = attention_bound(q, k, 0)
+    ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v))
     fa["global_8192_nocap"] = dict(
         shape="global_8192_nocap: layer-1 q, k, v, window 0, softcap 0",
-        **check_close(got, want, "global_8192_nocap"),
+        **check_close(got, want, "global_8192_nocap", bound, norm_bound),
         library_max_ulp=float(ulps(lib, want).max()),
-        ms=time_ms(torch, lambda: fa_ops.flash_attention(q, k, v)),
+        library_max_err_over_gate=float(((lib.float() - want.float()).abs()
+                                         / bound).max()),
+        ms=ms,
         plain_ms=time_ms(torch, lambda: fa_ref.ref_flash_attention(
-            q, k, v, sm_scale=q.shape[-1] ** -0.5)),
+            q, k, v, sm_scale=scale)),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
         library="F.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True) on [B, H, S, d] copies",
-        bound_ms=b_ms, bound_by=by)
+        bound_ms=b_ms, bound_by=by, **rates(q, 0, ms, b_ms))
+    fa["global_8192_nocap"]["library_ratio"] = \
+        ms / fa["global_8192_nocap"]["library_ms"]
     print(f"flash_attention global_8192_nocap ({card}): "
           f"{fa['global_8192_nocap']}")
-    del captured, got, want, lib, qt, kt, vt
+    del captured, got, want, bound, lib, qt, kt, vt
 
-    # float32 at a small GQA shape with ragged tails
+    # qwen2.5-32b's grouping at head dim 128 (40 query / 8 kv heads),
+    # random bf16, global, softcap 0, checked one kv head's group at a time
+    g = torch.Generator(dev).manual_seed(4)
+    qq = torch.randn((1, LM_PROMPT_BUF, 40, 128), generator=g,
+                     device=dev).bfloat16()
+    kq, vq = (torch.randn((1, LM_PROMPT_BUF, 8, 128), generator=g,
+                          device=dev).bfloat16() for _ in range(2))
+    got = fa_ops.flash_attention(qq, kq, vq)
+    groups = [(qq[:, :, 5 * h:5 * h + 5], kq[:, :, h:h + 1],
+               vq[:, :, h:h + 1]) for h in range(8)]
+
+    def by_group(fn):
+        return torch.cat([fn(*x, sm_scale=128 ** -0.5) for x in groups],
+                         dim=2)
+
+    want = by_group(fa_ref.ref_flash_attention)
+    bound = by_group(fa_ref.p_rounding_bound)
+    # the groups' errors are disjoint, so their bounds add in squares
+    norm_bound = sum(fa_ref.p_rounding_norm_bound(*x, sm_scale=128 ** -0.5)
+                     ** 2 for x in groups) ** 0.5
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kq, vq))
+    b_ms, by = attention_bound(qq, kq, 0)
+    ms = time_ms(torch, lambda: fa_ops.flash_attention(qq, kq, vq))
+    fa["qwen_global_8192"] = dict(
+        shape=f"qwen_global_8192: q {tuple(qq.shape)} k {tuple(kq.shape)} "
+              "bf16 (random), window 0, softcap 0; the plain version one kv "
+              "head's group at a time",
+        **check_close(got, want, "qwen_global_8192", bound, norm_bound),
+        ms=ms,
+        plain_ms=time_ms(torch, lambda: by_group(
+            fa_ref.ref_flash_attention)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        library="F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True) on [B, H, S, d] copies",
+        bound_ms=b_ms, bound_by=by, **rates(qq, 0, ms, b_ms))
+    fa["qwen_global_8192"]["library_ratio"] = \
+        ms / fa["qwen_global_8192"]["library_ms"]
+    print(f"flash_attention qwen_global_8192 ({card}): "
+          f"{fa['qwen_global_8192']}")
+    del qq, kq, vq, got, want, bound, groups, qt, kt, vt
+
+    # the FMA body: float32 at a small GQA shape with ragged tails within
+    # 1e-5, bfloat16 at head dim 32 within one ulp + 1e-5
     g = torch.Generator(dev).manual_seed(2)
     q32, k32, v32 = (torch.randn((2, 300, h, 256), generator=g, device=dev)
                      for h in (8, 4, 4))
@@ -638,9 +777,20 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(err <= 1e-5, f"flash_attention f32 window {window}: {err}")
-        print(f"flash_attention f32 [2, 300, 8/4, 256] window {window}: "
+        print(f"flash_attention f32 [2, 300, 8/4, 256] window {window} "
+              f"(body {body(q32)}): "
               f"max_abs_err {err}")
-    del q32, k32, v32
+    qs, ks, vs = (torch.randn((2, 300, h, 32), generator=g,
+                              device=dev).bfloat16() for h in (8, 4, 4))
+    for window in (0, 64):
+        got = fa_ops.flash_attention(qs, ks, vs, window=window, softcap=cap)
+        want = fa_ref.ref_flash_attention(qs, ks, vs, sm_scale=32 ** -0.5,
+                                          window=window, softcap=cap)
+        torch.cuda.synchronize()
+        res = check_close(got, want, f"bf16 d32 window {window}")
+        print(f"flash_attention bf16 [2, 300, 8/4, 32] window {window} "
+              f"(body {body(qs)}): {res}")
+    del q32, k32, v32, qs, ks, vs
 
     # the per-layer prefill_32k shape, the tail held to plain
     g = torch.Generator(dev).manual_seed(3)
@@ -651,28 +801,40 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
                             ("global_32768", 0, cap),
                             ("global_32768_nocap", 0, 0.0)):
         got = fa_ops.flash_attention(ql, kl, vl, window=window, softcap=c)
-        want = plain_tail(torch, ql, kl, vl, LM_TAIL, window, c)
+        tkw = dict(sm_scale=256 ** -0.5, window=window, softcap=c,
+                   q_offset=LM_LONG - LM_TAIL)
+        want = fa_ref.ref_flash_attention(ql[:, -LM_TAIL:], kl, vl, **tkw)
+        bound = fa_ref.p_rounding_bound(ql[:, -LM_TAIL:], kl, vl, **tkw)
+        norm_bound = fa_ref.p_rounding_norm_bound(ql[:, -LM_TAIL:], kl, vl,
+                                                  **tkw)
         torch.cuda.synchronize()
         b_ms, by = attention_bound(ql, kl, window)
+        ms = time_ms(torch, lambda: fa_ops.flash_attention(
+            ql, kl, vl, window=window, softcap=c))
         fa[name] = dict(
             shape=f"{name}: q {tuple(ql.shape)} k {tuple(kl.shape)} bf16 "
                   f"(random), window {window}, softcap {c}; last {LM_TAIL} "
                   "rows held to plain",
-            **check_close(got[:, -LM_TAIL:], want, name),
-            ms=time_ms(torch, lambda: fa_ops.flash_attention(
-                ql, kl, vl, window=window, softcap=c)),
+            **check_close(got[:, -LM_TAIL:], want, name, bound,
+                          norm_bound), ms=ms,
             plain_ms=None, plain="not measured: the plain score matrix "
                                  "would take 34 GB",
-            bound_ms=b_ms, bound_by=by, library_ms=None)
-        if c == 0 and window == 0:
+            bound_ms=b_ms, bound_by=by, **rates(ql, window, ms, b_ms),
+            library_ms=None)
+        if c > 0:
+            call, out = flex_library(ql, kl, vl, 256 ** -0.5, window, c)
+            add_flex(fa[name], call, out[:, -LM_TAIL:], want, bound)
+            del call, out
+        elif window == 0:
             qt, kt, vt = (x.transpose(1, 2).contiguous()
                           for x in (ql, kl, vl))
             fa[name]["library_ms"] = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True))
+            fa[name]["library_ratio"] = ms / fa[name]["library_ms"]
             del qt, kt, vt
         print(f"flash_attention {name} ({card}): {fa[name]}")
-        del got, want
+        del got, want, bound
     del ql, kl, vl
 
     # -- 12. the serving path at full width, launches counted --------------
@@ -691,15 +853,19 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     fa_launches = fa_ops.KERNEL.launches
+    fa_bodies = {"wgmma": fa_ops.WGMMA.launches, "fma": fa_ops.FMA.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_tokens = sum(len(r.out_tokens) for r in done)
     print(f"serving run ({card}): {len(done)} requests, {n_tokens} tokens in "
-          f"{run_s:.2f} s; flash_attention launches {fa_launches}; peak "
+          f"{run_s:.2f} s; flash_attention launches {fa_launches} "
+          f"(by body {fa_bodies}); peak "
           f"device memory {peak:.2f} GiB")
     check(len(done) == len(LM_PROMPTS), "not every request finished")
     check(fa_launches == cfg.n_layers * len(LM_PROMPTS),
           f"flash_attention launched {fa_launches} times, expected "
           f"{cfg.n_layers} per prefill")
+    check(fa_bodies["wgmma"] == fa_launches,
+          f"not every prefill attention took the Hopper body: {fa_bodies}")
     by_uid = sorted(done, key=lambda r: r.uid)
     worst, agree = 0.0, []
     for r in by_uid:
@@ -714,7 +880,7 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
         top = logits.max(dim=-1).values
         chosen = logits[torch.arange(len(out), device=dev),
                         torch.from_numpy(out).long().to(dev)]
-        margin = (top - chosen) / bf16_ulp(torch, logits.abs().max(
+        margin = (top - chosen) / fa_ref.ulp_bf16(logits.abs().max(
             dim=-1).values)
         worst = max(worst, float(margin.max()))
         check(bool((margin <= LM_EPS_ULPS).all()),
@@ -772,7 +938,8 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
               and e.self_device_time_total > 0]
         total = sum(e.self_device_time_total for e in ev) / (1e3 * reps)
         flash = sum(e.self_device_time_total for e in ev
-                    if "flash_kernel" in e.key) / (1e3 * reps)
+                    if "flash_wgmma_kernel" in e.key
+                    or "flash_kernel" in e.key) / (1e3 * reps)
         return total, flash, top_device_ops(ev, reps)
 
     device_ms, flash_ms, top_prefill = device_profile(prefill, 1)
@@ -795,11 +962,18 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:102",
         **fa["global_8192_nocap"], launches=fa_launches,
+        launches_by_body=fa_bodies, build=wgmma_build,
         also=[fa[k] for k in fa if k != "global_8192_nocap"])
     return {"gemma2-2b": times}
 
 
 def main() -> int:
+    # the one torch.compile (phase 11's flex_attention yardstick) keeps
+    # its caches in the checkout's build directory and compiles in-process
+    for var, val in (("TORCHINDUCTOR_CACHE_DIR", ROOT / "build" / "inductor"),
+                     ("TRITON_CACHE_DIR", ROOT / "build" / "triton"),
+                     ("TORCHINDUCTOR_COMPILE_THREADS", "1")):
+        os.environ.setdefault(var, str(val))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)

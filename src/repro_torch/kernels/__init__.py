@@ -27,7 +27,10 @@ Kernel inventory:
                      int32 segment ids, identity-initialised, through
                      an fp32 scratch;
   * flash_attention — online-softmax grouped-query attention (causal,
-                      sliding window, logit softcap), fp32 accumulation.
+                      sliding window, logit softcap), fp32 accumulation:
+                      a warp-specialised wgmma body with a TMA ring for
+                      bfloat16 at head dim 64-256, an fp32-FMA body for
+                      the rest.
 
 Build: ``nvcc`` compiles each source into its own shared library (one
 process per source, all started together) under
@@ -79,8 +82,10 @@ def build_dir() -> Path:
 def build() -> dict:
     """Compile every kernel library that is not built yet, one ``nvcc``
     per source, all in parallel. Returns ``{"seconds": wall time,
-    "ptxas": {name: register/shared-memory report}}``; raises with the
-    compiler's output if any source fails."""
+    "ptxas": {name: register/shared-memory report}}`` for the sources
+    built now (each report is also kept beside its library, see
+    ``ptxas_report``); raises with the compiler's output if any source
+    fails."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -100,6 +105,7 @@ def build() -> dict:
         text, _ = proc.communicate()
         reports[name] = text
         if proc.returncode == 0:
+            (out / f"lib{name}.ptxas.txt").write_text(text)
             os.replace(tmp, lib)
         else:
             os.unlink(tmp)
@@ -107,6 +113,16 @@ def build() -> dict:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return {"seconds": time.perf_counter() - t0, "ptxas": reports}
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` output of the build of ``csrc/<name>.cu``
+    (registers, shared memory, spills of each kernel), building it
+    first if needed."""
+    report = build_dir() / f"lib{name}.ptxas.txt"
+    if not report.exists():
+        build()
+    return report.read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

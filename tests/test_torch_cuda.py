@@ -13,8 +13,19 @@ fp32 sum rounded once on both sides, within one bfloat16 ulp (plus the
 fp32 order's error). The flash-attention kernel: float32 within 1e-5 of
 its plain version (fp32 sums in another order); bfloat16 inputs give
 fp32 results of two orders, each rounded once, so within one bfloat16
-ulp of the plain output plus that same 1e-5. This file imports no JAX,
-so it runs where only PyTorch is installed.
+ulp of the plain output plus that same 1e-5 -- for the FMA body, which
+keeps P fp32 (float32, and bfloat16 at d = 16, 32). The Hopper body
+(bfloat16 at d = 64, 128, 256) rounds P to bfloat16 for the PV product,
+as the reference model's bfloat16 prefill does (``p.astype(v.dtype)``
+into an fp32-accumulated product, ``repro/models/layers.py``), so its
+gate is ``ref.p_rounding_bound``: one ulp of the plain output, plus
+2^-8 (P @ |V|) for the rounding of each p by at most bfloat16's unit
+roundoff, plus the 1e-5 order term. One ulp + 1e-5 cannot hold for any
+kernel that rounds P, the reference's own bfloat16 paths included. That
+per-element bound is a worst case, so the whole difference is also held
+to the normwise ``ref.p_rounding_norm_bound``, which grows only as the
+rounding errors' root-mean-square does.
+This file imports no JAX, so it runs where only PyTorch is installed.
 """
 import dataclasses
 
@@ -171,13 +182,6 @@ def test_solves_on_card_match_oracle_and_counters(dev, name):
 # recsys kernels: embedding_bag and segment_reduce
 # ---------------------------------------------------------------------------
 
-def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """One bfloat16 ulp at |x| (7 stored mantissa bits)."""
-    x = x.float().abs()
-    e = torch.floor(torch.log2(torch.clamp(x, min=2.0 ** -126)))
-    return torch.exp2(e - 7)
-
-
 def _table(rows: int, dim: int, dtype, seed: int, dev) -> torch.Tensor:
     g = torch.Generator(dev).manual_seed(seed)
     return torch.randn((rows, dim), generator=g, device=dev).to(dtype)
@@ -215,7 +219,7 @@ def test_embedding_bag_kernel_matches_plain(dev, vocab, dim, bags, bag,
     if dtype == torch.float32:
         assert bool((err <= order).all())
     else:
-        assert bool((err <= bf16_ulp(want) + order).all())
+        assert bool((err <= fa_ref.ulp_bf16(want) + order).all())
 
 
 def test_embedding_bag_kernel_unaligned_table(dev):
@@ -272,7 +276,7 @@ def test_segment_reduce_kernel_matches_plain(dev, n, d, segs, sort, op,
     err = (got.float() - want.float()).abs()
     tol = 1e-5 * (1 + want.float().abs())
     if dtype == torch.bfloat16:
-        tol = tol + bf16_ulp(want)
+        tol = tol + fa_ref.ulp_bf16(want)
     assert bool((err <= tol).all())
 
 
@@ -325,15 +329,49 @@ def test_recsys_path_launches_the_kernels(dev):
         want = eb_ref.ref_embedding_bag(model.table, cand[:30].view(10, 3),
                                         combine)
         assert bool(((out.float() - want.float()).abs()
-                     <= 2 * bf16_ulp(want)).all())
+                     <= 2 * fa_ref.ulp_bf16(want)).all())
 
 
 # (B, Sq = Sk, Hq, Hkv, d): ragged tails (no multiple of the 64-row
-# tile), grouped heads, every head dim the kernel takes
+# or the 128-row tile), grouped heads (Hq / Hkv = 1, 2, 4, 5; 40 / 8 is
+# qwen2.5-32b's grouping), B = 2, every head dim the kernel takes
 FA_CASES = [(2, 100, 4, 2, 16), (1, 130, 8, 4, 256), (2, 77, 4, 4, 64),
-            (1, 65, 2, 1, 128), (1, 50, 2, 2, 32), (3, 1, 4, 2, 64)]
+            (1, 65, 2, 1, 128), (1, 50, 2, 2, 32), (3, 1, 4, 2, 64),
+            (1, 129, 4, 4, 128), (1, 255, 4, 2, 256), (1, 200, 40, 8, 128),
+            (2, 300, 10, 2, 64), (2, 255, 2, 2, 256)]
+# (causal, window, softcap): a window smaller than one kv tile (16, 20,
+# 33) and one longer than the sequence (4096), softcap 0, 30 and 50
 FA_VARIANTS = [(True, 0, 0.0), (True, 16, 0.0), (True, 0, 30.0),
-               (True, 33, 50.0), (False, 0, 0.0), (False, 20, 50.0)]
+               (True, 33, 50.0), (False, 0, 0.0), (False, 20, 50.0),
+               (True, 4096, 50.0)]
+
+
+def _fa_check(q, k, v, body, **kw):
+    """One kernel call against the plain version, under the body's gate:
+    the Hopper body within ``p_rounding_bound`` element by element and
+    within ``p_rounding_norm_bound`` as a whole, float32 within 1e-5,
+    bfloat16 on the FMA body within one ulp + 1e-5. The body that
+    ``body_of`` names must be the one that launched, once."""
+    assert fa_ops.body_of(q.dtype, q.shape[-1]) is body
+    before, total = body.launches, fa_ops.KERNEL.launches
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    kw = dict(kw, sm_scale=q.shape[-1] ** -0.5)
+    want = fa_ref.ref_flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert body.launches == before + 1
+    assert fa_ops.KERNEL.launches == total + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs()
+    if body is fa_ops.WGMMA:
+        tol = fa_ref.p_rounding_bound(q, k, v, **kw)
+        norm_tol = fa_ref.p_rounding_norm_bound(q, k, v, **kw)
+        assert float(err.norm()) <= norm_tol, float(err.norm()) / norm_tol
+    elif q.dtype == torch.float32:
+        tol = 1e-5
+    else:
+        tol = fa_ref.ulp_bf16(want) + 1e-5
+    assert bool(got.isfinite().all())
+    assert bool((err <= tol).all()), float((err - tol).max())
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
@@ -344,33 +382,30 @@ def test_flash_attention_kernel_matches_plain(dev, b, s, hq, hkv, d, causal,
     g = torch.Generator(dev).manual_seed(s * d + hq)
     q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
                for h in (hq, hkv, hkv))
-    before = fa_ops.KERNEL.launches
-    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                 softcap=cap)
-    want = fa_ref.ref_flash_attention(q, k, v, sm_scale=d ** -0.5,
-                                      causal=causal, window=window,
-                                      softcap=cap)
-    torch.cuda.synchronize()
-    assert fa_ops.KERNEL.launches == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
-    err = (got.float() - want.float()).abs()
-    tol = 1e-5 if dtype == torch.float32 else bf16_ulp(want) + 1e-5
-    assert bool((err <= tol).all()), float(err.max())
+    body = fa_ops.WGMMA if dtype == torch.bfloat16 and d >= 64 else \
+        fa_ops.FMA
+    _fa_check(q, k, v, body, causal=causal, window=window, softcap=cap)
 
 
-def test_flash_attention_kernel_longer_keys_than_queries(dev):
-    """Sk > Sq: the kv tail past the last query is masked by causality
-    and, without it, read to Sk."""
-    g = torch.Generator(dev).manual_seed(1)
-    q = torch.randn((1, 40, 2, 64), generator=g, device=dev)
-    k, v = (torch.randn((1, 90, 1, 64), generator=g, device=dev)
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 256)])
+@pytest.mark.parametrize("causal,window,cap", [(True, 0, 50.0),
+                                               (False, 0, 50.0),
+                                               (False, 0, 0.0),
+                                               (True, 70, 0.0)])
+def test_flash_attention_kernel_longer_keys_than_queries(dev, dtype, d,
+                                                        causal, window, cap):
+    """Sk > Sq (ragged both): keys past the last query are masked by
+    causality and, without it, read to Sk; on the Hopper body TMA's zero
+    fill past Sk is masked by position."""
+    g = torch.Generator(dev).manual_seed(d)
+    q = torch.randn((2, 150, 6, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, 333, 2, d), generator=g, device=dev).to(dtype)
             for _ in range(2))
-    for causal in (True, False):
-        got = fa_ops.flash_attention(q, k, v, causal=causal, softcap=50.0)
-        want = fa_ref.ref_flash_attention(q, k, v, sm_scale=0.125,
-                                          causal=causal, softcap=50.0)
-        torch.cuda.synchronize()
-        assert bool(((got - want).abs() <= 1e-5).all())
+    body = fa_ops.WGMMA if dtype == torch.bfloat16 else fa_ops.FMA
+    _fa_check(q, k, v, body, causal=causal, window=window, softcap=cap)
 
 
 def test_flash_attention_wrapper_rejects_bad_tensors(dev):
