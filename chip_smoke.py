@@ -10,14 +10,20 @@ Phases (any failure exits non-zero before the last line is printed):
    ``nvcc`` builds the six kernels from ``src/repro_torch/kernels/csrc``;
 2. kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them, bit-equal (integer work, tolerance
-   0), each timed with CUDA events (median of 3 after a warm-up);
+   0), each timed with CUDA events (median of 3 after a warm-up); K3 on
+   the main path's compress input of each graph (pi after segment 0's
+   hook): ``full_compress``'s fixpoint body beside the sequential
+   fixpoint body, both equal to ``ref_full_compress``, and the one-sweep
+   ``multi_jump``;
 3. the main path at full scale: ``solve_static(method="pallas_fused")``
    and ``solve_pallas`` on the Table I stand-ins usa-osm and kron-logn21
    at scale 1.0 (seed 1), with the launch counts of every kernel set to
    0 just before and read just after; labels equal the scipy oracle,
    ``pallas_fused`` WorkCounters equal the torch-ops ``adaptive`` solve,
-   and the fused kernel launches once per scan plus once per cleanup
-   round;
+   the fused kernel launches once per scan plus once per cleanup round,
+   and every K3 launch is on the fixpoint body; then each solve once
+   under ``torch.profiler``: every kernel's summed device time and
+   launches;
 4. parity constants: the four stand-ins at scale 0.002 reproduce the
    reference's WorkCounters and summed scan sweeps on the card;
 5. end-to-end solve times (median of 3 after a warm-up);
@@ -31,10 +37,15 @@ then the recsys serving slice, DCN-v2 at full width (26 Criteo tables,
    mean): bags of 1 bit-equal, larger bags within one bfloat16 ulp;
    timed beside ``F.embedding_bag``;
 7. the ragged EmbeddingBag path (``recsys.embedding_bag``, bags of 1-8
-   rows, launches counted) and ``segment_reduce`` against its plain
-   version on the gathered rows: sum within 1e-5 (1 + |ref|) in fp32
-   and one bfloat16 ulp after the cast, min / max bit-equal; timed
-   beside ``index_add_`` / ``scatter_reduce``;
+   rows, launches counted, all on ``segment_reduce``'s sorted body) and
+   both bodies of ``segment_reduce`` against its plain version on the
+   gathered rows: sum within 1e-5 (1 + |ref|) in fp32 and one bfloat16
+   ulp after the cast, min / max bit-equal, the sorted body's sum equal
+   across two calls; timed per call over 20 back-to-back calls (a call
+   this small costs its host work), beside ``index_add_`` (bf16, and
+   fp32 then the cast: the same function) / ``scatter_reduce``, with
+   each call's CUDA kernels and device time from ``torch.profiler`` (the
+   sorted body: exactly one kernel);
 8. the serving path through ``build_cell``: 8 ``serve_p99`` requests
    from a prefetched stream, one ``serve_bulk`` batch and one
    ``retrieval_cand`` query against 1,000,000 candidates, launch counts
@@ -112,6 +123,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device-memory rate
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core peak
 SECTOR = 32                        # bytes a random 4-byte read costs in DRAM
+K4_BATCH = 20                      # back-to-back calls per timing of K4
 FULL_SCALE = ("usa-osm", "kron-logn21")
 # table1_scaled(name, scale=0.002, seed=1): (|V|, |E|, s), the reference's
 # adaptive WorkCounters, and the summed per-segment sweeps of its scan
@@ -131,8 +143,9 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(torch, fn, reps: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings after one warm-up call."""
+def time_ms(torch, fn, reps: int = 3, batch: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings after one warm-up call, each
+    over ``batch`` back-to-back calls and given per call."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -140,10 +153,11 @@ def time_ms(torch, fn, reps: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -178,6 +192,37 @@ def top_device_ops(events, reps: int, n: int = 6) -> dict:
         ms[e.key[:60]] = ms.get(e.key[:60], 0.0) + \
             e.self_device_time_total / (1e3 * reps)
     return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:n])
+
+
+def device_kernels(torch, fn, reps: int = 1) -> tuple[dict, float]:
+    """Runs ``fn`` ``reps`` times under ``torch.profiler``. Returns
+    ({kernel name cut to 60 characters: {"ms": summed device ms,
+    "launches": count}} per repetition, the device time of all kernels
+    and copies per repetition)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    out = {}
+    for e in ev:
+        k = out.setdefault(e.key[:60], {"ms": 0.0, "launches": 0})
+        k["ms"] += e.self_device_time_total / (1e3 * reps)
+        k["launches"] += e.count // reps
+    total = sum(e.self_device_time_total for e in ev) / (1e3 * reps)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"])), total
+
+
+def kernel_share(per_kernel: dict, symbol: str) -> dict:
+    """The summed device ms and launches of the kernels whose name holds
+    ``symbol``."""
+    hits = [v for k, v in per_kernel.items() if symbol in k]
+    return {"ms": sum(v["ms"] for v in hits),
+            "launches": sum(v["launches"] for v in hits)}
 
 
 def recsys_phases(torch, np, dev, rows: dict) -> dict:
@@ -286,6 +331,11 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
     sr_launches = sr_ops.KERNEL.launches
     check(sr_launches == 3, f"segment_reduce launched {sr_launches} times "
                             "on the ragged path, expected 1 (sum) + 2 (mean)")
+    sr_bodies = {"sorted": sr_ops.SORTED.launches,
+                 "atomic": sr_ops.ATOMIC.launches}
+    check(sr_bodies["sorted"] == sr_launches,
+          f"the ragged path did not take segment_reduce's sorted body: "
+          f"{sr_bodies}")
     gathered = table[nnz_idx.long()]
     for c, got in ragged.items():
         want = sr_ref.ref_segment_reduce(gathered, bag_ids, num_bags, "sum")
@@ -307,50 +357,95 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
     n, d = gathered.shape
     ids64 = bag_ids.long()
     ids2 = ids64[:, None].expand(n, d)
+
+    def per_call(fn) -> dict:
+        """Device ops (kernels, and memsets or copies apart) and device
+        ms per call of ``fn``, from torch.profiler over 3 calls."""
+        per_kernel, total = device_kernels(torch, fn, reps=3)
+        mem = sum(v["launches"] for k, v in per_kernel.items()
+                  if k.startswith("Mem"))
+        return {"cuda_kernels": sum(v["launches"] for v in
+                                    per_kernel.values()) - mem,
+                "memsets_or_copies": mem, "device_ms": total}
+
     sr = {}
     for op in ("sum", "min", "max"):
-        # fp32 rows: the scratch's own numbers; bf16 rows: after the cast
-        got32 = sr_ops.segment_reduce(gathered.float(), bag_ids, num_bags,
-                                      op=op)
-        want32 = sr_ref.ref_segment_reduce(gathered.float(), bag_ids,
-                                           num_bags, op)
-        got = sr_ops.segment_reduce(gathered, bag_ids, num_bags, op=op)
-        want = sr_ref.ref_segment_reduce(gathered, bag_ids, num_bags, op)
+        # the sorted body (the path's), the atomic body, the plain version:
+        # fp32 rows give the accumulator's own numbers, bf16 rows the cast
+        calls = {
+            "sorted": lambda x, op=op: sr_ops.segment_reduce(
+                x, bag_ids, num_bags, op=op, indices_are_sorted=True),
+            "atomic": lambda x, op=op: sr_ops.segment_reduce(
+                x, bag_ids, num_bags, op=op),
+            "plain": lambda x, op=op: sr_ref.ref_segment_reduce(
+                x, bag_ids, num_bags, op)}
+        out = {k: (f(gathered.float()), f(gathered))
+               for k, f in calls.items()}
+        again = calls["sorted"](gathered)
         torch.cuda.synchronize()
-        if op == "sum":
-            check(bool(((got32 - want32).abs()
-                        <= 1e-5 * (1 + want32.abs())).all()),
-                  "segment_reduce sum (fp32) out of tolerance")
-            check(bool(((got.float() - want.float()).abs()
-                        <= ulp_bf16(want)).all()),
-                  "segment_reduce sum (bf16) over 1 ulp")
-        else:
-            check(torch.equal(got32, want32) and torch.equal(got, want),
-                  f"segment_reduce {op} not bit-equal to plain")
+        want32, want = out["plain"]
+        for body in ("sorted", "atomic"):
+            got32, got = out[body]
+            if op == "sum":
+                check(bool(((got32 - want32).abs()
+                            <= 1e-5 * (1 + want32.abs())).all()),
+                      f"segment_reduce sum (fp32, {body}) out of tolerance")
+                check(bool(((got.float() - want.float()).abs()
+                            <= ulp_bf16(want)).all()),
+                      f"segment_reduce sum (bf16, {body}) over 1 ulp")
+            else:
+                check(torch.equal(got32, want32) and torch.equal(got, want),
+                      f"segment_reduce {op} ({body}) not bit-equal to plain")
+        check(torch.equal(again, out["sorted"][1]),
+              f"segment_reduce {op}: two calls of the sorted body differ")
         if op == "sum":
             library = lambda: torch.zeros(
                 (num_bags, d), dtype=gathered.dtype, device=dev).index_add_(
                 0, ids64, gathered)
+            library32 = lambda: torch.zeros(
+                (num_bags, d), dtype=torch.float32, device=dev).index_add_(
+                0, ids64, gathered.float()).to(gathered.dtype)
         else:
             library = lambda op=op: torch.full(
                 (num_bags, d), sr_ref.reduce_identity(op),
                 dtype=gathered.dtype, device=dev).scatter_reduce_(
                 0, ids2, gathered, "amin" if op == "min" else "amax")
+            library32 = None
         ms_bound, by = bound(n * d * esize + 4 * n + num_bags * d * esize,
                              n * d)
+        got32, got = out["sorted"]
         sr[op] = dict(
+            op=op,
             shape=f"{op}: N={n} rows x {d} bf16 into S={num_bags} (ragged "
-                  "bags of 1-8)",
+                  "bags of 1-8, sorted ids)",
             equal=torch.equal(got, want), max_abs_err=float_err(got, want),
             max_abs_err_fp32=float_err(got32, want32),
-            ms=time_ms(torch, lambda op=op: sr_ops.segment_reduce(
-                gathered, bag_ids, num_bags, op=op)),
-            plain_ms=time_ms(torch, lambda op=op: sr_ref.ref_segment_reduce(
-                gathered, bag_ids, num_bags, op)),
-            library_ms=time_ms(torch, library),
-            bound_ms=ms_bound, bound_by=by)
+            atomic_max_abs_err=float_err(out["atomic"][1], want),
+            deterministic=True,
+            ms=time_ms(torch, lambda: calls["sorted"](gathered),
+                       batch=K4_BATCH),
+            atomic_ms=time_ms(torch, lambda: calls["atomic"](gathered),
+                              batch=K4_BATCH),
+            plain_ms=time_ms(torch, lambda: calls["plain"](gathered),
+                             batch=K4_BATCH),
+            library_ms=time_ms(torch, library, batch=K4_BATCH),
+            library="index_add_ on a bf16 zeros" if op == "sum" else
+                    "scatter_reduce_ on an identity-filled bf16 tensor",
+            bound_ms=ms_bound, bound_by=by,
+            per_call={"sorted": per_call(lambda: calls["sorted"](gathered)),
+                      "atomic": per_call(lambda: calls["atomic"](gathered)),
+                      "library": per_call(library)})
+        if library32 is not None:
+            sr[op].update(
+                library_fp32_ms=time_ms(torch, library32, batch=K4_BATCH),
+                library_fp32="index_add_ of fp32 rows on fp32 zeros, then "
+                             "the cast to bf16 (the same function)")
+            sr[op]["per_call"]["library_fp32"] = per_call(library32)
+        check(sr[op]["per_call"]["sorted"]["cuda_kernels"] == 1,
+              f"segment_reduce {op}: the sorted body ran "
+              f"{sr[op]['per_call']['sorted']} per call, not one kernel")
         print(f"segment_reduce {op}: {sr[op]}")
-    del gathered, ids2, ragged, got32, want32
+    del gathered, ids2, ragged, out, again
 
     # -- 8. the serving path at full width, launches counted ---------------
     cells = {s: steps.build_cell("dcn-v2", s, device=dev)
@@ -476,11 +571,24 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
         replaces="src/repro/kernels/embedding_bag/embedding_bag.py:44",
         **eb["serve_bulk"], launches=eb_launches,
         also=[eb[k] for k in eb if k != "serve_bulk"])
+    k4 = dict(route="cuda",
+              source="src/repro_torch/kernels/csrc/segment_reduce.cu",
+              replaces="src/repro/kernels/segment_reduce/segment_reduce.py:62")
     rows["segment_reduce"] = dict(
-        name="segment_reduce", route="cuda",
-        source="src/repro_torch/kernels/csrc/segment_reduce.cu",
-        replaces="src/repro/kernels/segment_reduce/segment_reduce.py:62",
-        **sr["sum"], launches=sr_launches, also=[sr["min"], sr["max"]])
+        name="segment_reduce", body="segment_reduce_sorted", **k4,
+        **sr["sum"], launches=sr_bodies["sorted"],
+        also=[sr["min"], sr["max"]])
+
+    def atomic(row: dict) -> dict:
+        return {**row, "shape": row["shape"].replace("sorted ids",
+                                                     "the atomic body"),
+                "body": "segment_reduce", "ms": row["atomic_ms"],
+                "max_abs_err": row["atomic_max_abs_err"],
+                "deterministic": row["op"] != "sum"}
+    rows["segment_reduce_atomic"] = dict(
+        name="segment_reduce_atomic", **k4, **atomic(sr["sum"]),
+        launches=sr_bodies["atomic"],
+        also=[atomic(sr["min"]), atomic(sr["max"])])
     return {"dcn-v2": times}
 
 
@@ -1086,32 +1194,73 @@ def main() -> int:
                                  + 8 * g.num_nodes),
         library_ms=None)
 
+    # K3 on the main path's compress input, pi after the first segment's
+    # hook, on both graphs: full_compress (the fixpoint body) beside the
+    # one-block sequential body run to its fixpoint (tile 512, 2 rounds,
+    # at most 64 sweeps)
+    mj, seq_mj = {}, {}
+    for name, g in graphs.items():
+        pi0 = torch.arange(g.num_nodes, dtype=torch.int32, device=dev)
+        hooked = rounds.hook_edges(pi0, scans[name][0][0], lift_steps=2)
+        want = mj_ref.ref_full_compress(hooked)
+        got = mj_ops.full_compress(hooked, tile=512)
+        seq = mj_ops.sequential_sweeps(hooked, tile=512, rounds=2,
+                                       max_sweeps=mj_ops.MAX_SWEEPS)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got, want), max_abs_err(seq, want))
+        check(err == 0, f"full_compress or the sequential fixpoint differs "
+                        f"from ref_full_compress on {name}")
+        moved = int((hooked != want).sum())
+        v = g.num_nodes
+        shape = (f"{name} full_compress: V={v}, pi after segment 0's hook "
+                 f"({moved} pointers move)")
+        common = dict(equal=True, max_abs_err=err,
+                      plain_ms=time_ms(torch, lambda: mj_ref.ref_full_compress(
+                          hooked)),
+                      bound_ms=bound_ms(8 * v), bound_by="bytes",
+                      bound_sector_ms=bound_ms((8 + SECTOR) * v),
+                      library_ms=None)
+        mj[name] = dict(
+            shape=shape, body="compress_roots", **common,
+            ms=time_ms(torch, lambda: mj_ops.full_compress(hooked, tile=512)))
+        seq_mj[name] = dict(
+            shape=shape + "; tile 512, 2 rounds, at most 64 sweeps",
+            body="multi_jump_sweeps", **common,
+            ms=time_ms(torch, lambda: mj_ops.sequential_sweeps(
+                hooked, tile=512, rounds=2, max_sweeps=mj_ops.MAX_SWEEPS)))
+        mj[name]["speedup_over_sequential"] = \
+            seq_mj[name]["ms"] / mj[name]["ms"]
+        print(f"multi_jump {name} ({card}): fixpoint body {mj[name]}; "
+              f"sequential body {seq_mj[name]}")
+
+    # the one-sweep body (multi_jump), off the main path
     g = graphs["kron-logn21"]
-    segs = scans["kron-logn21"][0]
-    pi0 = torch.arange(g.num_nodes, dtype=torch.int32, device=dev)
-    hooked = rounds.hook_edges(pi0, segs[0], lift_steps=2)  # compress input
+    hooked = rounds.hook_edges(
+        torch.arange(g.num_nodes, dtype=torch.int32, device=dev),
+        scans["kron-logn21"][0][0], lift_steps=2)
     got = mj_ops.multi_jump(hooked, tile=512, rounds=2)
     want = mj_ref.ref_multi_jump_sweep(hooked, 512, 2)
-    full = mj_ops.full_compress(hooked, tile=512)
     torch.cuda.synchronize()
-    err = max(max_abs_err(got, want),
-              max_abs_err(full, mj_ref.ref_full_compress(hooked)))
+    err = max_abs_err(got, want)
     check(err == 0, "multi_jump differs from its plain version on kron")
-    print(f"multi_jump kron-logn21 (V={g.num_nodes}, tile 512): one sweep "
-          "and full_compress equal to plain")
-    rows["multi_jump"] = dict(
-        name="multi_jump", route="cuda",
-        source="src/repro_torch/kernels/csrc/multi_jump.cu",
-        replaces="src/repro/kernels/multi_jump/multi_jump.py:56",
+    seq_mj["one_sweep"] = dict(
         shape=f"kron-logn21 one sweep: V={g.num_nodes}, tile 512, rounds 2",
-        equal=True, max_abs_err=err,
+        body="multi_jump_sweeps", equal=True, max_abs_err=err,
         ms=time_ms(torch, lambda: mj_ops.multi_jump(hooked, tile=512)),
         plain_ms=time_ms(torch, lambda: mj_ref.ref_multi_jump_sweep(
             hooked, 512, 2)),
         bound_ms=bound_ms(8 * g.num_nodes), bound_by="bytes",
         bound_sector_ms=bound_ms((8 + 2 * SECTOR) * g.num_nodes),
         library_ms=None)
-    del hooked, got, want, full
+    print(f"multi_jump one sweep ({card}): {seq_mj['one_sweep']}")
+    k3 = dict(route="cuda", source="src/repro_torch/kernels/csrc/multi_jump.cu",
+              replaces="src/repro/kernels/multi_jump/multi_jump.py:56")
+    rows["multi_jump"] = dict(name="multi_jump", **k3, **mj["usa-osm"],
+                              also=[mj["kron-logn21"]])
+    rows["multi_jump_sequential"] = dict(
+        name="multi_jump_sequential", **k3, **seq_mj["usa-osm"],
+        also=[seq_mj["kron-logn21"], seq_mj["one_sweep"]])
+    del hooked, got, want, seq
 
     # -- 3. the main path at full scale, launches counted ------------------
     ks = {"cc_fused": cc_ops.KERNEL, "hook": hook_ops.KERNEL,
@@ -1128,6 +1277,10 @@ def main() -> int:
         results[name] = (fused, fused_launches, labels)
     torch.cuda.synchronize()
     launches = {n: k.launches for n, k in ks.items()}
+    mj_bodies = {"roots": mj_ops.ROOTS.launches,
+                 "sequential": mj_ops.SEQUENTIAL.launches}
+    check(mj_bodies["roots"] == launches["multi_jump"],
+          f"full_compress did not take the fixpoint body: {mj_bodies}")
     print(f"main path (pallas_fused + pallas on {', '.join(FULL_SCALE)}): "
           f"{time.perf_counter() - t0:.1f} s, launches {launches}")
     for n, count in launches.items():
@@ -1153,10 +1306,31 @@ def main() -> int:
         print(f"{name}: labels == scipy oracle ({len(np.unique(want))} "
               f"components); pallas_fused counters == adaptive {aw}; "
               f"cc_fused launches {fused_launches} = 1 + {cleanup} cleanup")
-    for k, row in rows.items():
-        row["launches"] = launches[k]
+    for k in ("cc_fused", "hook"):
+        rows[k]["launches"] = launches[k]
+    rows["multi_jump"]["launches"] = mj_bodies["roots"]
+    rows["multi_jump_sequential"]["launches"] = mj_bodies["sequential"]
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # where each solve's device time goes: every kernel's summed device
+    # time and launches over one solve, from torch.profiler
+    symbols = {"cc_fused": "cc_fused_kernel", "hook": "hook_tiles_kernel",
+               "multi_jump": "compress_roots_kernel",
+               "multi_jump_sequential": "multi_jump_kernel"}
+    for name, g in graphs.items():
+        for solve, fn in (("pallas", lambda: cc.solve_pallas(g)),
+                          ("pallas_fused", lambda: cc.solve_static(
+                              g, method="pallas_fused"))):
+            per_kernel, total = device_kernels(torch, fn)
+            shares = {k: kernel_share(per_kernel, sym)
+                      for k, sym in symbols.items()}
+            print(f"profile {name} {solve} ({card}): device {total:.3f} ms; "
+                  f"CC kernels {shares}; top "
+                  f"{dict(list(per_kernel.items())[:6])}")
+            for k, share in shares.items():
+                rows[k].setdefault("main_path_device_ms", {})[
+                    f"{name} {solve}"] = share
 
     # -- 4. parity constants at scale 0.002 --------------------------------
     for name, (shape, counters, scan_sweeps) in PARITY.items():
@@ -1199,8 +1373,9 @@ def main() -> int:
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [rows[k] for k in (
-        "cc_fused", "hook", "multi_jump", "embedding_bag",
-        "segment_reduce", "flash_attention")]}))
+        "cc_fused", "hook", "multi_jump", "multi_jump_sequential",
+        "embedding_bag", "segment_reduce", "segment_reduce_atomic",
+        "flash_attention")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

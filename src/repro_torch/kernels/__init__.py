@@ -19,13 +19,16 @@ Kernel inventory:
   * hook       — edge-tiled hook (gather, root chase, scatter-min),
                  tiles in ascending order;
   * multi_jump — blocked pointer jumping with continuous write-back,
-                 vertex tiles in ascending order, to a fixpoint;
+                 vertex tiles in ascending order (one sweep), and the
+                 compress to the fixpoint on every SM, each vertex
+                 chased to its root;
   * embedding_bag  — gather rows of a [Vocab, D] table by [B, bag]
                      indices and sum or mean each bag (fp32 sum, one
                      rounding to the table dtype);
   * segment_reduce — sum / min / max of [N, D] rows into [S, D] by
-                     int32 segment ids, identity-initialised, through
-                     an fp32 scratch;
+                     int32 segment ids, identity-initialised: sorted
+                     ids in one pass that owns each output row,
+                     unsorted ids through atomics on an fp32 scratch;
   * flash_attention — online-softmax grouped-query attention (causal,
                       sliding window, logit softcap), fp32 accumulation:
                       a warp-specialised wgmma body with a TMA ring for
@@ -169,6 +172,25 @@ class Kernel:
         self.launches += 1
 
 
+class Bodies:
+    """The launches of a kernel's bodies (``Kernel``s of one source) as
+    one count: reading gives the sum, setting it to 0 resets each."""
+
+    def __init__(self, *bodies: Kernel):
+        self.bodies = bodies
+
+    @property
+    def launches(self) -> int:
+        return sum(b.launches for b in self.bodies)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        if n != 0:
+            raise ValueError("the launch count can only be reset to 0")
+        for b in self.bodies:
+            b.launches = 0
+
+
 def check_tensor(name: str, t, dtypes: tuple, ndim: int) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of one of
     ``dtypes`` with ``ndim`` dimensions."""
@@ -191,6 +213,8 @@ def check_int32(name: str, t, ndim: int) -> None:
 
 
 def stream_of(t) -> int:
-    """The raw handle of the current stream on ``t``'s device."""
+    """The raw handle of the current stream on ``t``'s device, read
+    without building a ``torch.cuda.Stream`` (which costs a few
+    microseconds a call, as much as a small kernel runs)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import Kernel, check_tensor, library, stream_of
+from repro_torch.kernels import Bodies, Kernel, check_tensor, stream_of
 from repro_torch.kernels.flash_attention.ref import ref_flash_attention
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,24 +32,7 @@ FMA = Kernel("flash_attention", "flash_attention",
              _ARGS + [ctypes.c_int, ctypes.c_void_p])
 WGMMA = Kernel("flash_attention", "flash_attention_wgmma",
                _ARGS + [ctypes.c_void_p])
-
-
-class _Launches:
-    """The launches of both bodies as one count: reading gives the sum,
-    setting it to 0 resets both."""
-
-    @property
-    def launches(self) -> int:
-        return FMA.launches + WGMMA.launches
-
-    @launches.setter
-    def launches(self, n: int) -> None:
-        if n != 0:
-            raise ValueError("the launch count can only be reset to 0")
-        FMA.launches = WGMMA.launches = 0
-
-
-KERNEL = _Launches()
+KERNEL = Bodies(FMA, WGMMA)
 
 
 def body_of(dtype: torch.dtype, d: int) -> Kernel:

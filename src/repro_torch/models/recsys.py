@@ -92,14 +92,17 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   bag_ids: torch.Tensor, num_bags: int,
                   combine: str = "sum") -> torch.Tensor:
     """General EmbeddingBag: rows = table[indices]; the rows of each
-    bag (int32 ``bag_ids``, sorted) reduce through the segment-reduce
-    kernel. [nnz] -> [num_bags, dim]; an empty bag is 0."""
+    bag (int32 ``bag_ids``, ascending, as the reference's
+    ``segment_sum`` over them assumes) reduce through the segment-reduce
+    kernel's sorted body. [nnz] -> [num_bags, dim]; an empty bag is 0."""
     rows = table[indices.long()]
-    out = segment_reduce(rows, bag_ids, num_bags, op="sum")
+    out = segment_reduce(rows, bag_ids, num_bags, op="sum",
+                         indices_are_sorted=True)
     if combine == "mean":
         ones = torch.ones((indices.shape[0],), dtype=rows.dtype,
                           device=rows.device)
-        cnt = segment_reduce(ones, bag_ids, num_bags, op="sum")
+        cnt = segment_reduce(ones, bag_ids, num_bags, op="sum",
+                             indices_are_sorted=True)
         out = out / torch.clamp(cnt, min=1.0)[:, None]
     return out
 

@@ -146,6 +146,54 @@ def test_multi_jump_kernel_matches_plain(dev, n, tile):
     assert torch.equal(full, mj_ref.ref_full_compress(pi))
 
 
+def _fixpoint_case(kind: str, n: int, dev) -> torch.Tensor:
+    v = np.arange(n)
+    pi = {"forest": lambda: np.minimum(v, np.random.default_rng(n).integers(
+              0, n, n)),
+          "chain": lambda: np.maximum(v - 1, 0),
+          "reversed_chain": lambda: np.minimum(v + 1, n - 1),
+          "star": lambda: np.zeros(n),
+          "roots": lambda: v}[kind]()
+    return torch.from_numpy(pi.astype(np.int32)).to(dev)
+
+
+# forests of every tail length (V mod 4), chains of 2^20 vertices toward
+# lower ids (as hooks build them) and toward higher ids, a star, all roots
+FIXPOINT_CASES = ([("forest", n) for n in (1, 2, 3, 5, 1000, 4099, 100003)]
+                  + [("chain", 2 ** 20), ("reversed_chain", 2 ** 20),
+                     ("star", 2 ** 20), ("roots", 4096),
+                     ("forest", 2 ** 22 + 1)])
+
+
+@pytest.mark.parametrize("kind,n", FIXPOINT_CASES)
+def test_full_compress_fixpoint_body_matches_plain(dev, kind, n):
+    """full_compress's fixpoint body (one launch of compress_roots) is
+    bit-equal to ref_full_compress and leaves its input alone."""
+    pi = _fixpoint_case(kind, n, dev)
+    keep = pi.clone()
+    before = (mj_ops.ROOTS.launches, mj_ops.SEQUENTIAL.launches)
+    got = mj_ops.full_compress(pi)
+    want = mj_ref.ref_full_compress(pi)
+    torch.cuda.synchronize()
+    assert (mj_ops.ROOTS.launches, mj_ops.SEQUENTIAL.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got, want)
+    assert torch.equal(pi, keep)
+
+
+@pytest.mark.parametrize("n", (8, 1001, 2 ** 20))
+def test_full_compress_fixpoint_body_returns_on_a_cycle(dev, n):
+    """A pi that is no forest (one cycle through every vertex, and short
+    cycles beside a tree) still returns, within the body's 32 rounds,
+    with every entry a vertex id."""
+    v = torch.arange(n, dtype=torch.int32, device=dev)
+    for pi in ((v + 1) % n, torch.where(v % 2 == 0, v + 1, v - 1)
+               if n % 2 == 0 else torch.where(v < 3, (v + 1) % 3, v - 3)):
+        got = mj_ops.full_compress(pi.to(torch.int32).contiguous())
+        torch.cuda.synchronize()
+        assert bool(((got >= 0) & (got < n)).all())
+
+
 def test_wrappers_reject_bad_tensors(dev):
     pi = torch.arange(10, dtype=torch.int32, device=dev)
     edges = _edges(10, 6, 1, dev)
@@ -280,6 +328,70 @@ def test_segment_reduce_kernel_matches_plain(dev, n, d, segs, sort, op,
     assert bool((err <= tol).all())
 
 
+# (n, d, segments, offset): ids sorted and running from below 0 to past
+# the last segment, so both ends drop rows; d = 1 (1-D), d = 3 (no
+# 16-byte rows), the embedding bag's shape; offset 1 element leaves the
+# data off 16-byte alignment (the body's scalar loads)
+SR_SORTED_CASES = [(256, 16, 16, 0), (1000, 1, 50, 0), (999, 3, 40, 0),
+                   (60000, 16, 13312, 0), (512, 8, 64, 1), (0, 16, 5, 0)]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("op", ("sum", "min", "max"))
+@pytest.mark.parametrize("n,d,segs,offset", SR_SORTED_CASES)
+def test_segment_reduce_sorted_body_matches_plain(dev, n, d, segs, offset,
+                                                  op, dtype):
+    """The sorted body (one kernel): min / max bit-equal to plain, sums
+    within the atomic body's gates and bit-equal from call to call."""
+    flat = _table(n * d + offset, 1, dtype, n + d, dev)[:, 0]
+    data = flat[offset:].view(n, d)
+    if d == 1:
+        data = data[:, 0]
+    ids = torch.randint(-3, segs + 3, (n,), device=dev,
+                        generator=torch.Generator(dev).manual_seed(n))
+    ids = torch.sort(ids).values.to(torch.int32)
+    before = (sr_ops.SORTED.launches, sr_ops.ATOMIC.launches)
+    got = sr_ops.segment_reduce(data, ids, segs, op=op,
+                                indices_are_sorted=True)
+    again = sr_ops.segment_reduce(data, ids, segs, op=op,
+                                  indices_are_sorted=True)
+    want = sr_ref.ref_segment_reduce(data, ids, segs, op)
+    torch.cuda.synchronize()
+    assert (sr_ops.SORTED.launches, sr_ops.ATOMIC.launches) == (
+        before[0] + 2, before[1])
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    if op != "sum":
+        assert torch.equal(got, want)
+        return
+    err = (got.float() - want.float()).abs()
+    tol = 1e-5 * (1 + want.float().abs())
+    if dtype == torch.bfloat16:
+        tol = tol + fa_ref.ulp_bf16(want)
+    assert bool((err <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_segment_reduce_sorted_body_is_one_kernel(dev, dtype):
+    """torch.profiler sees exactly one CUDA kernel (and no memset or
+    copy) per call of the sorted body, at the embedding bag's shape."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    data = _table(60000, 16, dtype, 7, dev)
+    ids = torch.sort(torch.randint(0, 13312, (60000,), device=dev,
+                                   generator=torch.Generator(dev).manual_seed(
+                                       7))).values.to(torch.int32)
+    sr_ops.segment_reduce(data, ids, 13312, indices_are_sorted=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sr_ops.segment_reduce(data, ids, 13312, indices_are_sorted=True)
+        torch.cuda.synchronize()
+    ops = [(e.key, e.count) for e in prof.key_averages()
+           if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    assert len(ops) == 1 and ops[0][1] == 1 and "sorted_kernel" in ops[0][0], ops
+
+
 @pytest.mark.parametrize("op", ("sum", "min", "max"))
 def test_segment_reduce_kernel_empty_input_and_segments(dev, op):
     data = torch.empty((0, 4), device=dev)
@@ -293,8 +405,8 @@ def test_segment_reduce_kernel_empty_input_and_segments(dev, op):
 def test_recsys_path_launches_the_kernels(dev):
     """On CUDA tensors the recsys lookups go through the kernels: K5 once
     per forward and twice per retrieval query, K4 once per ragged sum
-    bag and twice per mean bag; the logits match the plain-lookup route
-    bit for bit."""
+    bag and twice per mean bag, on its sorted body; the logits match the
+    plain-lookup route bit for bit."""
     cfg = dataclasses.replace(
         dcn_v2.make_config(),
         table_sizes=tuple(min(s, 5000) for s in dcn_v2.make_config().
@@ -325,7 +437,7 @@ def test_recsys_path_launches_the_kernels(dev):
         sr_ops.KERNEL.launches = 0
         out = recsys.embedding_bag(model.table, cand[:30], bag_ids, 10,
                                    combine)
-        assert sr_ops.KERNEL.launches == launches
+        assert sr_ops.KERNEL.launches == sr_ops.SORTED.launches == launches
         want = eb_ref.ref_embedding_bag(model.table, cand[:30].view(10, 3),
                                         combine)
         assert bool(((out.float() - want.float()).abs()

@@ -3,6 +3,8 @@ reference's Pallas kernels, run as the reference's own tests run them on
 the CPU (``interpret=True``). Same numpy inputs through both; exact
 integer equality (tolerance 0). The kernels themselves run only on the
 card: ``tests/test_torch_cuda.py``."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,3 +162,92 @@ def test_cc_fused_plain_matches_reference_jnp_scan():
                              jnp.asarray(counts.numpy()))
     assert int(sweeps.sum()) == int(jw.jump_sweeps) == 32
     assert jr.compress_fuel(g.num_nodes) == tr.compress_fuel(g.num_nodes)
+
+
+def _depth(pi: np.ndarray) -> int:
+    """The largest number of parent steps from a vertex to its root."""
+    nxt = pi.copy()
+    dist = (nxt != np.arange(pi.shape[0])).astype(np.int64)
+    while True:
+        step = dist[nxt]
+        if not step.any():
+            return int(dist.max())
+        dist = dist + step
+        nxt = nxt[nxt]
+
+
+def _counted_sweeps(pi: torch.Tensor, tile: int) -> tuple[torch.Tensor, int]:
+    """Sequential sweeps (2 rounds) until one changes nothing, uncapped:
+    the fixpoint and the sweeps taken, the last (unchanged) one
+    included."""
+    sweeps = 0
+    while True:
+        nxt = mj_ref.ref_multi_jump_sweep(pi, tile, 2)
+        sweeps += 1
+        if torch.equal(nxt, pi):
+            return pi, sweeps
+        pi = nxt
+
+
+def _chain(n: int) -> np.ndarray:
+    return np.maximum(np.arange(n) - 1, 0).astype(np.int32)
+
+
+def _reversed_chain(n: int) -> np.ndarray:
+    return np.minimum(np.arange(n) + 1, n - 1).astype(np.int32)
+
+
+# forests full_compress's fixpoint body is exact on: chains of 2^k
+# vertices toward lower ids (as hooks build them) and toward higher ids,
+# and random forests of the main path's form (pi[v] <= v)
+FIXPOINT_FORESTS = (
+    [("chain", 2 ** k) for k in (1, 4, 8, 12, 16)]
+    + [("reversed_chain", 2 ** k) for k in (1, 4, 8, 12, 16)]
+    + [("forest", n) for n in (257, 4096, 50000)])
+
+
+def _fixpoint_input(kind: str, n: int) -> np.ndarray:
+    if kind == "chain":
+        return _chain(n)
+    if kind == "reversed_chain":
+        return _reversed_chain(n)
+    return _forest(n, n)
+
+
+@pytest.mark.parametrize("tile", (128, 512))
+@pytest.mark.parametrize("kind,n", FIXPOINT_FORESTS)
+def test_sequential_sweeps_reach_fixpoint_inside_cap(kind, n, tile):
+    """The sequential sweeps that full_compress's plain version runs
+    reach the fixpoint (every vertex at its root) far inside the 64-sweep
+    cap, so the fixpoint body on the card may ignore the sweep order.
+    Each of a sweep's two rounds moves a pointer at least as far as its
+    target's pointer reached at the sweep's start (values only move up),
+    so a sweep at least triples the least distance to the root: the
+    fixpoint comes within ceil(log3 depth) sweeps and the next changes
+    nothing (at most 21 for any int32 forest). Halving the log2, as if
+    each round doubled, does not hold: a chain toward higher ids takes 11
+    sweeps at depth 2^16 - 1, because a tile reads the next tile's
+    pointers as the last sweep left them."""
+    pi = _fixpoint_input(kind, n)
+    want = mj_ref.ref_full_compress(torch.from_numpy(pi))
+    got, sweeps = _counted_sweeps(torch.from_numpy(pi), tile)
+    assert torch.equal(got, want)
+    depth = max(_depth(pi), 1)
+    assert sweeps <= math.ceil(math.log(depth, 3) - 1e-9) + 1, (sweeps, depth)
+    assert torch.equal(mj_ref.ref_multi_jump_sweeps(
+        torch.from_numpy(pi), tile, 2, 64), want)
+    assert torch.equal(full_compress(torch.from_numpy(pi), tile=tile), want)
+
+
+@pytest.mark.parametrize("kind,n", [("chain", 4096),
+                                    ("reversed_chain", 4096),
+                                    ("forest", 4096), ("forest", 1000)])
+def test_full_compress_fixpoint_matches_reference_interpret(kind, n):
+    """Where interpret mode can afford it, the reference's full_compress
+    reaches the same fixpoint."""
+    pi = _fixpoint_input(kind, n)
+    want = mj_ref.ref_full_compress(torch.from_numpy(pi))
+    _eq(want, jmj_ops.full_compress(jnp.asarray(pi), tile=512,
+                                    interpret=True))
+    _eq(full_compress(torch.from_numpy(pi)), jmj_ref.ref_full_compress(
+        jnp.asarray(pi)))

@@ -24,6 +24,7 @@ from repro.kernels.segment_reduce import ops as jsr_ops
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.segment_reduce import ops as sr_ops
 from repro_torch.kernels.segment_reduce.ref import reduce_identity
+from repro_torch.models import recsys
 from repro_torch.models.layers import from_numpy
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -199,3 +200,107 @@ def test_segment_reduce_wrapper_rejects_bad_arguments():
                               op="mean")
     with pytest.raises(ValueError, match="segment_ids"):
         sr_ops.segment_reduce(data, torch.zeros(3, dtype=torch.int32), 2)
+
+
+# sorted ids (the ragged embedding bag's), some segments empty: (n, d,
+# segments); d = 1 runs the wrapper's 1-D path
+SORTED_GRID = [(256, 16, 40), (1000, 8, 300), (300, 1, 24)]
+JAX_SEGMENT_OPS = {"sum": jax.ops.segment_sum, "min": jax.ops.segment_min,
+                   "max": jax.ops.segment_max}
+
+
+def _sorted_case(n: int, d: int, segs: int, lo: int, hi: int, dtype: str):
+    rng = np.random.default_rng(n + d + segs)
+    ids = np.sort(rng.integers(lo, hi, n)).astype(np.int32)
+    shape = (n,) if d == 1 else (n, d)
+    jv, tv = _pair(rng.standard_normal(shape), dtype)
+    return ids, jv, tv
+
+
+def _both_bodies(tv, ids, segs, op):
+    """The sorted and the unsorted call, which must agree."""
+    got = sr_ops.segment_reduce(tv, torch.from_numpy(ids), segs, op=op,
+                                indices_are_sorted=True)
+    unsorted = sr_ops.segment_reduce(tv, torch.from_numpy(ids), segs, op=op)
+    assert got.dtype == tv.dtype and got.shape == unsorted.shape
+    assert torch.equal(got, unsorted)
+    return got
+
+
+@pytest.mark.parametrize("dtype", tuple(DTYPES))
+@pytest.mark.parametrize("op", ("sum", "min", "max"))
+@pytest.mark.parametrize("n,d,segs", SORTED_GRID)
+def test_segment_reduce_sorted_matches_unsorted_and_reference(n, d, segs,
+                                                              op, dtype):
+    """``indices_are_sorted=True`` gives the unsorted call's result and
+    the reference kernel's (interpret): float32 sums within 1e-5, bf16
+    sums within one ulp of the fp32 sum (the reference kernel sums bf16
+    rows in bf16, so it is held to min / max only), min / max
+    bit-equal."""
+    ids, jv, tv = _sorted_case(n, d, segs, 0, segs, dtype)
+    got = _np(_both_bodies(tv, ids, segs, op))
+    if op != "sum" or dtype == "float32":
+        want = np.asarray(jsr_ops.segment_reduce(
+            jv, jnp.asarray(ids), segs, op=op, tile=128, interpret=True),
+            np.float32)
+        if op == "sum":
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(got, want)
+    if op == "sum" and dtype == "bfloat16":
+        assert_within_bf16_ulp(got, np.asarray(jax.ops.segment_sum(
+            jv.astype(jnp.float32), jnp.asarray(ids), num_segments=segs,
+            indices_are_sorted=True)))
+
+
+@pytest.mark.parametrize("dtype", tuple(DTYPES))
+@pytest.mark.parametrize("op", ("sum", "min", "max"))
+def test_segment_reduce_sorted_drops_out_of_range_ids_at_both_ends(op,
+                                                                   dtype):
+    """Sorted ids that start below 0 and end at or past S: those rows are
+    dropped, as ``jax.ops.segment_*(indices_are_sorted=True)`` drops
+    them."""
+    ids, jv, tv = _sorted_case(200, 4, 10, -3, 14, dtype)
+    assert ids[0] < 0 and ids[-1] >= 10
+    got = _np(_both_bodies(tv, ids, 10, op))
+    want = np.asarray(JAX_SEGMENT_OPS[op](
+        jv.astype(jnp.float32), jnp.asarray(ids), num_segments=10,
+        indices_are_sorted=True))
+    if op == "sum" and dtype == "bfloat16":
+        assert_within_bf16_ulp(got, want)
+    elif op == "sum":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("op", ("sum", "min", "max"))
+def test_segment_reduce_sorted_empty_input(op):
+    """N = 0 rows: every segment holds the identity."""
+    got = _both_bodies(torch.empty((0, 3)), np.empty(0, np.int32), 4, op)
+    assert torch.equal(got, torch.full((4, 3), reduce_identity(op)))
+
+
+def test_embedding_bag_takes_the_sorted_body(monkeypatch):
+    """``recsys.embedding_bag`` promises sorted bag ids for both of its
+    segment sums (the rows, and for ``mean`` the counts), as the
+    reference's ``segment_sum`` over them assumes."""
+    seen = []
+
+    def record(*args, **kw):
+        seen.append(kw)
+        return sr_ops.segment_reduce(*args, **kw)
+
+    monkeypatch.setattr(recsys, "segment_reduce", record)
+    table = torch.arange(40, dtype=torch.float32).reshape(10, 4)
+    idx = torch.tensor([1, 2, 3, 4, 5], dtype=torch.int32)
+    bags = torch.tensor([0, 0, 1, 3, 3], dtype=torch.int32)
+    for combine in ("sum", "mean"):
+        out = recsys.embedding_bag(table, idx, bags, 4, combine)
+        want = torch.stack([table[1] + table[2], table[3],
+                            torch.zeros(4), table[4] + table[5]])
+        if combine == "mean":
+            want = want / torch.tensor([2.0, 1.0, 1.0, 2.0])[:, None]
+        assert torch.equal(out, want)
+    assert len(seen) == 3
+    assert all(kw.get("indices_are_sorted") is True for kw in seen)
