@@ -10,20 +10,26 @@ Phases (any failure exits non-zero before the last line is printed):
    ``nvcc`` builds the six kernels from ``src/repro_torch/kernels/csrc``;
 2. kernels against their plain PyTorch versions on the card, at the
    shapes the main path gives them, bit-equal (integer work, tolerance
-   0), each timed with CUDA events (median of 3 after a warm-up); K3 on
-   the main path's compress input of each graph (pi after segment 0's
-   hook): ``full_compress``'s fixpoint body beside the sequential
-   fixpoint body, both equal to ``ref_full_compress``, and the one-sweep
-   ``multi_jump``;
+   0), each timed with CUDA events (median of 3 after a warm-up); K1's
+   scan and its first cleanup launch (pi after the scan, the whole edge
+   list), each also at fuel 1 (the hooks and one sweep), which splits
+   its time into hook and sweeps; K2 on segment 0 of each graph: the
+   snapshot body (``solve_pallas``'s hook) against ``hook_edges``,
+   beside the one-block tiled body; K3 on the main path's compress input
+   of each graph (pi after segment 0's hook): ``full_compress``'s
+   fixpoint body beside the sequential fixpoint body, both equal to
+   ``ref_full_compress``, and the one-sweep ``multi_jump``;
 3. the main path at full scale: ``solve_static(method="pallas_fused")``
    and ``solve_pallas`` on the Table I stand-ins usa-osm and kron-logn21
    at scale 1.0 (seed 1), with the launch counts of every kernel set to
    0 just before and read just after; labels equal the scipy oracle,
    ``pallas_fused`` WorkCounters equal the torch-ops ``adaptive`` solve,
    the fused kernel launches once per scan plus once per cleanup round,
-   and every K3 launch is on the fixpoint body; then each solve once
-   under ``torch.profiler``: every kernel's summed device time and
-   launches;
+   ``solve_pallas`` launches K2's snapshot body once per ``adaptive``
+   hook round, and every K3 launch is on the fixpoint body; then each
+   solve once under ``torch.profiler``: every kernel's summed device
+   time and launches, and K1's and K2's device time launch by launch
+   (the scan or each segment, then each cleanup round);
 4. parity constants: the four stand-ins at scale 0.002 reproduce the
    reference's WorkCounters and summed scan sweeps on the card;
 5. end-to-end solve times (median of 3 after a warm-up);
@@ -37,7 +43,9 @@ then the recsys serving slice, DCN-v2 at full width (26 Criteo tables,
    mean): bags of 1 bit-equal, larger bags within one bfloat16 ulp;
    timed beside ``F.embedding_bag``;
 7. the ragged EmbeddingBag path (``recsys.embedding_bag``, bags of 1-8
-   rows, launches counted, all on ``segment_reduce``'s sorted body) and
+   rows, ascending ids passed with ``indices_are_sorted=True``, launches
+   counted, all on ``segment_reduce``'s sorted body; the same bags with
+   their rows shuffled through the default call, on the atomic body) and
    both bodies of ``segment_reduce`` against its plain version on the
    gathered rows: sum within 1e-5 (1 + |ref|) in fp32 and one bfloat16
    ulp after the cast, min / max bit-equal, the sorted body's sum equal
@@ -217,6 +225,22 @@ def device_kernels(torch, fn, reps: int = 1) -> tuple[dict, float]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"])), total
 
 
+def launch_ms(torch, fn, symbol: str) -> list:
+    """The device ms of each launch of the kernels whose name holds
+    ``symbol``, in launch order, over one call of ``fn`` under
+    ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type != DeviceType.CPU and symbol in e.name),
+                key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in ev]
+
+
 def kernel_share(per_kernel: dict, symbol: str) -> dict:
     """The summed device ms and launches of the kernels whose name holds
     ``symbol``."""
@@ -325,7 +349,8 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
         np.arange(lengths.size), lengths).astype(np.int32)).to(dev)
     num_bags = int(lengths.size)
     sr_ops.KERNEL.launches = 0
-    ragged = {c: recsys.embedding_bag(table, nnz_idx, bag_ids, num_bags, c)
+    ragged = {c: recsys.embedding_bag(table, nnz_idx, bag_ids, num_bags, c,
+                                      indices_are_sorted=True)
               for c in ("sum", "mean")}
     torch.cuda.synchronize()
     sr_launches = sr_ops.KERNEL.launches
@@ -337,6 +362,8 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
           f"the ragged path did not take segment_reduce's sorted body: "
           f"{sr_bodies}")
     gathered = table[nnz_idx.long()]
+    perm = torch.randperm(nnz_idx.shape[0], device=dev,
+                          generator=torch.Generator(dev).manual_seed(2))
     for c, got in ragged.items():
         want = sr_ref.ref_segment_reduce(gathered, bag_ids, num_bags, "sum")
         if c == "mean":
@@ -350,6 +377,23 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
         check(ulps <= (1.0 if c == "sum" else 2.0),
               f"recsys.embedding_bag {c}: {ulps} ulp")
         print(f"ragged embedding_bag {c}: {ulps} ulp from plain")
+        # the same bags with their rows shuffled (ids in no order), through
+        # the default call: segment_reduce's atomic body, the same bags.
+        # mean: one ulp of the sum over the count is under two ulps of the
+        # mean, and the division rounds once on each side, 3 ulp
+        before = (sr_ops.SORTED.launches, sr_ops.ATOMIC.launches)
+        shuffled = recsys.embedding_bag(table, nnz_idx[perm], bag_ids[perm],
+                                        num_bags, c)
+        torch.cuda.synchronize()
+        check((sr_ops.SORTED.launches, sr_ops.ATOMIC.launches)
+              == (before[0], before[1] + (1 if c == "sum" else 2)),
+              "shuffled bags did not take segment_reduce's atomic body")
+        s_ulps = float(((shuffled.float() - want.float()).abs()
+                        / ulp_bf16(want)).max())
+        check(s_ulps <= (1.0 if c == "sum" else 3.0),
+              f"recsys.embedding_bag {c}, shuffled bag ids: {s_ulps} ulp")
+        print(f"ragged embedding_bag {c}, shuffled bag ids: {s_ulps} ulp "
+              "from plain")
     print(f"ragged embedding_bag: {num_bags} bags, nnz "
           f"{nnz_idx.shape[0]}, lengths 1-8; segment_reduce launches "
           f"{sr_launches}")
@@ -1156,10 +1200,40 @@ def main() -> int:
             max_abs_err=err,
             ms=time_ms(torch, lambda: cc_ops.fused_segment_scan(
                 pi0, segs, counts)),
+            fuel1_ms=time_ms(torch, lambda: cc_ops.fused_segment_scan(
+                pi0, segs, counts, fuel=1)),
             plain_ms=time_ms(torch, lambda: cc_ref.ref_segment_scan(
                 pi0, segs, counts)),
             bound_ms=bound_ms(stream), bound_sector_ms=bound_ms(sector)))
         print(f"cc_fused {name}: {scans[name][2]}")
+        # K1's first cleanup launch at the path's shape: pi after the scan,
+        # the whole edge list as one segment. Fuel 1 (the hook and one
+        # sweep) beside the full fuel splits its time into hook and sweeps
+        flat = segs.reshape(1, -1, 2)
+        true1 = torch.tensor([g.true_edges], dtype=torch.int32, device=dev)
+        got_c = cc_ops.fused_segment_scan(got_pi, flat, true1)
+        want_c = cc_ref.ref_segment_scan(got_pi, flat, true1)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got_c[0], want_c[0]),
+                  max_abs_err(got_c[1], want_c[1]))
+        check(err == 0, f"cc_fused's cleanup launch differs from its plain "
+                        f"version on {name}")
+        sweeps = int(got_c[1].sum())
+        n_edges = flat.shape[1]
+        scans[name][2]["cleanup"] = dict(
+            shape=f"{name} first cleanup launch: V={g.num_nodes}, "
+                  f"E={n_edges}, pi after the scan, {sweeps} sweeps",
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: cc_ops.fused_segment_scan(
+                got_pi, flat, true1)),
+            fuel1_ms=time_ms(torch, lambda: cc_ops.fused_segment_scan(
+                got_pi, flat, true1, fuel=1)),
+            bound_ms=bound_ms(8 * n_edges + 8 * g.num_nodes * (sweeps + 1)),
+            bound_sector_ms=bound_ms((8 + 7 * SECTOR) * n_edges
+                                     + (4 + SECTOR + 4) * g.num_nodes
+                                     * sweeps))
+        print(f"cc_fused {name} cleanup: {scans[name][2]['cleanup']}")
+        del got_c, want_c
     rows["cc_fused"] = dict(
         name="cc_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/cc_fused.cu",
@@ -1193,6 +1267,39 @@ def main() -> int:
         bound_sector_ms=bound_ms((8 + 7 * SECTOR) * n_edges
                                  + 8 * g.num_nodes),
         library_ms=None)
+
+    # K2's snapshot body (solve_pallas's hook) against hook_edges on each
+    # graph's segment 0, timed beside the one-block body on usa
+    snap = {}
+    for name, g in graphs.items():
+        seg0 = scans[name][0][0]
+        pi0 = torch.arange(g.num_nodes, dtype=torch.int32, device=dev)
+        got = hook_ops.hook_edges_snapshot(pi0, seg0, lift_steps=2)
+        want = rounds.hook_edges(pi0, seg0, lift_steps=2)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        check(err == 0, f"hook_snapshot differs from hook_edges on {name}")
+        n_edges = seg0.shape[0]
+        snap[name] = dict(
+            shape=f"{name} segment 0: E={n_edges}, V={g.num_nodes}, one "
+                  "snapshot",
+            equal=True, max_abs_err=err,
+            ms=time_ms(torch, lambda: hook_ops.hook_edges_snapshot(
+                pi0, seg0, lift_steps=2)),
+            plain_ms=time_ms(torch, lambda: rounds.hook_edges(
+                pi0, seg0, lift_steps=2)),
+            bound_ms=bound_ms(8 * n_edges + 8 * g.num_nodes),
+            bound_by="bytes",
+            bound_sector_ms=bound_ms((8 + 7 * SECTOR) * n_edges
+                                     + 8 * g.num_nodes),
+            library_ms=None)
+        print(f"hook_snapshot {name} ({card}): {snap[name]}")
+    snap["usa-osm"]["one_block_ms"] = rows["hook"]["ms"]
+    rows["hook_snapshot"] = dict(
+        name="hook_snapshot", route="cuda",
+        source="src/repro_torch/kernels/csrc/hook.cu",
+        replaces="src/repro/kernels/hook/hook.py:53", **snap["usa-osm"],
+        also=[snap["kron-logn21"]])
 
     # K3 on the main path's compress input, pi after the first segment's
     # hook, on both graphs: full_compress (the fixpoint body) beside the
@@ -1273,20 +1380,26 @@ def main() -> int:
         before = cc_ops.KERNEL.launches
         fused = cc.solve_static(g, method="pallas_fused")
         fused_launches = cc_ops.KERNEL.launches - before
+        before = hook_ops.KERNEL.launches
         labels = cc.solve_pallas(g)
-        results[name] = (fused, fused_launches, labels)
+        results[name] = (fused, fused_launches, labels,
+                         hook_ops.KERNEL.launches - before)
     torch.cuda.synchronize()
     launches = {n: k.launches for n, k in ks.items()}
     mj_bodies = {"roots": mj_ops.ROOTS.launches,
                  "sequential": mj_ops.SEQUENTIAL.launches}
     check(mj_bodies["roots"] == launches["multi_jump"],
           f"full_compress did not take the fixpoint body: {mj_bodies}")
+    hook_bodies = {"snapshot": hook_ops.SNAPSHOT.launches,
+                   "tiles": hook_ops.TILES.launches}
+    check(hook_bodies["snapshot"] == launches["hook"],
+          f"solve_pallas did not take the snapshot hook body: {hook_bodies}")
     print(f"main path (pallas_fused + pallas on {', '.join(FULL_SCALE)}): "
           f"{time.perf_counter() - t0:.1f} s, launches {launches}")
     for n, count in launches.items():
         check(count > 0, f"kernel {n} was not launched on the main path")
     for name, g in graphs.items():
-        fused, fused_launches, labels = results[name]
+        fused, fused_launches, labels, hook_launches = results[name]
         want = connected_components_scipy(g.edges.cpu().numpy(),
                                           g.num_nodes)
         check(np.array_equal(fused.labels.cpu().numpy(), want),
@@ -1303,11 +1416,16 @@ def main() -> int:
         check(fused_launches == 1 + cleanup,
               f"cc_fused launched {fused_launches} times on {name}, "
               f"expected 1 + {cleanup} cleanup rounds")
+        check(hook_launches == aw["hook_rounds"],
+              f"solve_pallas launched the hook {hook_launches} times on "
+              f"{name}, adaptive has {aw['hook_rounds']} hook rounds")
         print(f"{name}: labels == scipy oracle ({len(np.unique(want))} "
               f"components); pallas_fused counters == adaptive {aw}; "
-              f"cc_fused launches {fused_launches} = 1 + {cleanup} cleanup")
-    for k in ("cc_fused", "hook"):
-        rows[k]["launches"] = launches[k]
+              f"cc_fused launches {fused_launches} = 1 + {cleanup} cleanup; "
+              f"solve_pallas hook launches {hook_launches} = hook_rounds")
+    rows["cc_fused"]["launches"] = launches["cc_fused"]
+    rows["hook"]["launches"] = hook_bodies["tiles"]
+    rows["hook_snapshot"]["launches"] = hook_bodies["snapshot"]
     rows["multi_jump"]["launches"] = mj_bodies["roots"]
     rows["multi_jump_sequential"]["launches"] = mj_bodies["sequential"]
     print(f"peak device memory: "
@@ -1316,6 +1434,7 @@ def main() -> int:
     # where each solve's device time goes: every kernel's summed device
     # time and launches over one solve, from torch.profiler
     symbols = {"cc_fused": "cc_fused_kernel", "hook": "hook_tiles_kernel",
+               "hook_snapshot": "hook_snapshot_kernel",
                "multi_jump": "compress_roots_kernel",
                "multi_jump_sequential": "multi_jump_kernel"}
     for name, g in graphs.items():
@@ -1331,6 +1450,34 @@ def main() -> int:
             for k, share in shares.items():
                 rows[k].setdefault("main_path_device_ms", {})[
                     f"{name} {solve}"] = share
+
+    # K1 and K2 by launch: the scan (or each segment), then each cleanup
+    # round, from torch.profiler
+    for name, g in graphs.items():
+        split = launch_ms(torch, lambda: cc.solve_pallas(g),
+                          "hook_snapshot_kernel")
+        nseg = g.plan.num_segments
+        check(len(split) == results[name][3],
+              f"profile of {name} solve_pallas holds {len(split)} "
+              f"hook_snapshot launches, not {results[name][3]}")
+        rows["hook_snapshot"].setdefault("per_launch_ms", {})[name] = {
+            "segments": sum(split[:nseg]),
+            "segment_max": max(split[:nseg]),
+            "cleanup": split[nseg:]}
+        print(f"profile {name} pallas by launch ({card}): hook_snapshot "
+              f"{nseg} segments {sum(split[:nseg]):.3f} ms (max "
+              f"{max(split[:nseg]):.3f}), cleanup rounds "
+              f"{[round(t, 3) for t in split[nseg:]]}")
+        split = launch_ms(torch, lambda: cc.solve_static(
+            g, method="pallas_fused"), "cc_fused_kernel")
+        check(len(split) == results[name][1],
+              f"profile of {name} pallas_fused holds {len(split)} cc_fused "
+              f"launches, not {results[name][1]}")
+        rows["cc_fused"].setdefault("per_launch_ms", {})[name] = {
+            "scan": split[0], "cleanup": split[1:]}
+        print(f"profile {name} pallas_fused by launch ({card}): scan "
+              f"{split[0]:.3f} ms, cleanup rounds "
+              f"{[round(t, 3) for t in split[1:]]}")
 
     # -- 4. parity constants at scale 0.002 --------------------------------
     for name, (shape, counters, scan_sweeps) in PARITY.items():
@@ -1373,7 +1520,8 @@ def main() -> int:
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [rows[k] for k in (
-        "cc_fused", "hook", "multi_jump", "multi_jump_sequential",
+        "cc_fused", "hook", "hook_snapshot", "multi_jump",
+        "multi_jump_sequential",
         "embedding_bag", "segment_reduce", "segment_reduce_atomic",
         "flash_attention")]}))
     print(json.dumps({"ok": True, "device": {

@@ -191,7 +191,14 @@ def solve_pallas(graph, num_nodes: int | None = None, *,
                  lift_steps: int = 2, device=None) -> torch.Tensor:
     """Adaptive CC on the per-round kernel backend ``pallas`` (hook +
     multi_jump kernels): one hook launch per segment and cleanup round,
-    one compress launch after each. Returns canonical min-id labels."""
+    one compress launch after each. Returns canonical min-id labels.
+
+    The backend promises labels only, as the reference's does (its
+    counters are zeros by contract). So its hook is the TPU kernel at
+    one tile per segment: every edge of a segment hooks from one π
+    snapshot, on every SM. π after each segment and cleanup round is
+    then the torch-ops ``adaptive``'s, and the hook launches equal its
+    ``hook_rounds``."""
     g = as_device_graph(graph, num_nodes, num_segments=num_segments,
                         device=device)
     if g.num_nodes <= 0:
@@ -201,9 +208,7 @@ def solve_pallas(graph, num_nodes: int | None = None, *,
     plan = plan_segmentation(g.edges.shape[0], g.num_nodes,
                              g.plan.num_segments)
     ops = rounds.pallas_round_ops(
-        lift_steps=lift_steps,
-        edge_tile=min(1024, plan.segment_size),
-        node_tile=min(512, max(8, g.num_nodes)))
+        lift_steps=lift_steps, node_tile=min(512, max(8, g.num_nodes)))
     pi, _ = rounds.adaptive_rounds(g.edges, g.num_nodes, plan, ops=ops,
                                    true_edges=g.edges.shape[0])
     return pi

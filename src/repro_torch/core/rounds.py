@@ -174,16 +174,16 @@ def torch_round_ops(lift_steps: int = 2) -> RoundOps:
     )
 
 
-def pallas_round_ops(lift_steps: int, edge_tile: int, node_tile: int
-                     ) -> RoundOps:
-    """Per-round kernel ops (backend ``pallas``): the ``hook`` kernel
-    and the ``multi_jump`` compress kernel. The kernels do not thread
-    work counters; compress passes them through, as in the reference."""
-    from repro_torch.kernels.hook.ops import hook_edges_pallas
+def pallas_round_ops(lift_steps: int, node_tile: int) -> RoundOps:
+    """Per-round kernel ops (backend ``pallas``): the ``hook`` kernel at
+    one tile per edge set (every edge hooks from one π snapshot, as
+    ``hook_edges`` does) and the ``multi_jump`` compress kernel. The
+    kernels do not thread work counters; compress passes them through,
+    as in the reference."""
+    from repro_torch.kernels.hook.ops import hook_edges_snapshot
     from repro_torch.kernels.multi_jump.ops import full_compress
     return RoundOps(
-        hook=lambda pi, e: hook_edges_pallas(
-            pi, e, edge_tile=edge_tile, lift_steps=lift_steps),
+        hook=lambda pi, e: hook_edges_snapshot(pi, e, lift_steps=lift_steps),
         compress=lambda pi, w: (full_compress(pi, tile=node_tile), w),
         bill_lift=1 + lift_steps,
     )

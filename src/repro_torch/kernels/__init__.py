@@ -16,8 +16,9 @@ Each kernel package ships:
 Kernel inventory:
   * cc_fused   — the WHOLE Fig. 4 segment scan (every hook round and
                  every compress sweep) in one cooperative launch;
-  * hook       — edge-tiled hook (gather, root chase, scatter-min),
-                 tiles in ascending order;
+  * hook       — hook (gather, root chase, scatter-min): every edge
+                 from one π snapshot on every SM, and edge tiles in
+                 ascending order in one block;
   * multi_jump — blocked pointer jumping with continuous write-back,
                  vertex tiles in ascending order (one sweep), and the
                  compress to the fixpoint on every SM, each vertex

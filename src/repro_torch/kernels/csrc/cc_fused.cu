@@ -11,7 +11,11 @@
 //   1. every edge slot j < seg: mask slots >= counts[i] to (0, 0), gather
 //      pi[u], pi[v], chase lift_steps levels, store (hi, lo) in scratch;
 //      grid barrier (all reads come from one pi snapshot);
-//   2. atomicMin(pi[hi], lo) for every slot; grid barrier;
+//   2. atomicMin(pi[hi], lo) for every slot whose lo lies below the live
+//      pi[hi]; grid barrier. pi only falls in this phase, so a skipped
+//      atomic was a no-op: on power-law graphs most slots of a segment
+//      (and of a cleanup round) meet one hub root, and issued, those
+//      no-ops serialise on one address;
 //   3. Jacobi sweeps while n < fuel: B[v] = A[A[v]] for every vertex,
 //      flags[i*fuel + n] = 1 if any entry changed; grid barrier; count the
 //      sweep; stop (uniformly) if the flag is clear, else swap A and B;
@@ -68,10 +72,11 @@ cc_fused_kernel(const int* __restrict__ segs, const int* __restrict__ counts,
       hilo[j] = make_int2(max(pu, pv), min(pu, pv));
     }
     grid.sync();
-    // 2. scatter-min (each thread reads back only its own slots)
+    // 2. scatter-min (each thread reads back only its own slots); an
+    // atomic whose value is not below the live A[hi] is a no-op, skipped
     for (long long j = tid; j < seg; j += stride) {
       const int2 h = hilo[j];
-      atomicMin(A + h.x, h.y);
+      if (h.y < __ldcg(A + h.x)) atomicMin(A + h.x, h.y);
     }
     grid.sync();
     // 3. Jacobi pointer doubling to a fixpoint under fuel

@@ -1,1 +1,2 @@
-from repro_torch.kernels.hook.ops import hook_edges_pallas
+from repro_torch.kernels.hook.ops import (hook_edges_pallas,
+                                         hook_edges_snapshot)

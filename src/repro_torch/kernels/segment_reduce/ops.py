@@ -40,14 +40,20 @@ def segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor,
     whose id lies outside [0, S) are dropped. The rows meet an fp32
     accumulator and are cast once at the end. ``indices_are_sorted``
     promises ascending ids, as ``jax.ops.segment_sum``'s argument of that
-    name does (ids that are not ascending then give an unspecified
-    result). A CPU ``data`` runs the plain version; a CUDA one the
-    kernel body the flag names (one call, one counted launch)."""
+    name does. A CPU ``data`` runs the plain version and raises
+    ``ValueError`` on a broken promise; a CUDA one the kernel body the
+    flag names (one call, one counted launch) and, as jax does, leaves
+    the promise to the caller (a check would cost a host sync): ids that
+    are not ascending then give an unspecified result."""
     reduce_identity(op)                      # validates op
     if segment_ids.dim() != 1 or segment_ids.shape[0] != data.shape[0]:
         raise ValueError(f"segment_ids must be [N] with N = "
                          f"{data.shape[0]}, got {tuple(segment_ids.shape)}")
     if data.device.type == "cpu":
+        if indices_are_sorted and not bool(
+                (segment_ids[1:] >= segment_ids[:-1]).all()):
+            raise ValueError("indices_are_sorted=True, but segment_ids "
+                             "are not ascending")
         return ref_segment_reduce(data, segment_ids, num_segments, op)
     squeeze = data.dim() == 1
     rows = data[:, None] if squeeze else data

@@ -90,19 +90,23 @@ class RecsysConfig:
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   bag_ids: torch.Tensor, num_bags: int,
-                  combine: str = "sum") -> torch.Tensor:
+                  combine: str = "sum", *,
+                  indices_are_sorted: bool = False) -> torch.Tensor:
     """General EmbeddingBag: rows = table[indices]; the rows of each
-    bag (int32 ``bag_ids``, ascending, as the reference's
-    ``segment_sum`` over them assumes) reduce through the segment-reduce
-    kernel's sorted body. [nnz] -> [num_bags, dim]; an empty bag is 0."""
+    bag (int32 ``bag_ids``, in any order, as the reference's
+    ``segment_sum`` over them takes them) reduce through the
+    segment-reduce kernel. [nnz] -> [num_bags, dim]; an empty bag is 0.
+    ``indices_are_sorted`` promises ascending ``bag_ids`` and sends both
+    segment sums to the kernel's sorted body; the default takes its
+    atomic body."""
     rows = table[indices.long()]
     out = segment_reduce(rows, bag_ids, num_bags, op="sum",
-                         indices_are_sorted=True)
+                         indices_are_sorted=indices_are_sorted)
     if combine == "mean":
         ones = torch.ones((indices.shape[0],), dtype=rows.dtype,
                           device=rows.device)
         cnt = segment_reduce(ones, bag_ids, num_bags, op="sum",
-                             indices_are_sorted=True)
+                             indices_are_sorted=indices_are_sorted)
         out = out / torch.clamp(cnt, min=1.0)[:, None]
     return out
 

@@ -17,6 +17,8 @@ from repro_torch.core.unionfind import (connected_components_oracle,
 from repro_torch.graphs.device import DeviceGraph
 from repro_torch.graphs.generators import table1_scaled
 from repro_torch.kernels.cc_fused.ops import fused_segment_scan
+from repro_torch.kernels.hook import ops as hook_ops
+from repro_torch.kernels.multi_jump import ops as mj_ops
 
 CASES = corpus()
 IDS = [c[0] for c in CASES]
@@ -46,6 +48,44 @@ def test_solve_pallas_matches_reference(name, n, edges):
                                   np.asarray(jcc.solve_pallas(edges, n)))
     np.testing.assert_array_equal(got.numpy(),
                                   connected_components_oracle(edges, n))
+
+
+@pytest.mark.parametrize("name,n,edges", CASES, ids=IDS)
+def test_solve_pallas_pi_after_every_round_equals_adaptive(monkeypatch, name,
+                                                           n, edges):
+    """``solve_pallas`` hooks each segment and cleanup round from one π
+    snapshot, so π after every compress (each segment, then each cleanup
+    round) equals the torch-ops ``adaptive``'s, and it makes one hook
+    call per ``hook_rounds`` of ``adaptive``."""
+    seen = {"pallas": [], "adaptive": [], "hooks": 0}
+    real_full, real_compress = mj_ops.full_compress, tr.compress
+    real_hook = hook_ops.hook_edges_snapshot
+
+    def full_compress(pi, **kw):
+        out = real_full(pi, **kw)
+        seen["pallas"].append(out.clone())
+        return out
+
+    def compress(pi, work, **kw):
+        out = real_compress(pi, work, **kw)
+        seen["adaptive"].append(out[0].clone())
+        return out
+
+    def hook(pi, edges, **kw):
+        seen["hooks"] += 1
+        return real_hook(pi, edges, **kw)
+
+    monkeypatch.setattr(mj_ops, "full_compress", full_compress)
+    monkeypatch.setattr(tr, "compress", compress)
+    monkeypatch.setattr(hook_ops, "hook_edges_snapshot", hook)
+    labels = tcc.solve_pallas(edges, n, device="cpu")
+    adaptive = tcc.solve_static(edges, n, "adaptive", device="cpu")
+    rounds = adaptive.work.as_ints()["hook_rounds"]
+    assert seen["hooks"] == len(seen["pallas"]) == rounds
+    assert len(seen["adaptive"]) == rounds
+    for got, want in zip(seen["pallas"], seen["adaptive"]):
+        assert torch.equal(got, want)
+    assert torch.equal(labels, adaptive.labels)
 
 
 @pytest.mark.parametrize("name,n,edges", CASES, ids=IDS)

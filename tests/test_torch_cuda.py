@@ -115,7 +115,7 @@ def test_cc_fused_kernel_exhausted_fuel_matches_plain(dev):
         assert torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("tile", (1, 7, 256, 1024, 2000))
+@pytest.mark.parametrize("tile", (1, 7, 256, 1000, 1024, 2000, 6144))
 @pytest.mark.parametrize("lift", (0, 2))
 def test_hook_kernel_matches_plain(dev, tile, lift):
     n, e = 3000, 10007
@@ -129,6 +129,81 @@ def test_hook_kernel_matches_plain(dev, tile, lift):
     # the CPU path of the same wrapper gives the same answer
     assert torch.equal(hook_ops.hook_edges_pallas(
         pi.cpu(), edges.cpu(), edge_tile=tile, lift_steps=lift), want.cpu())
+
+
+def _storm(kind: str, n: int, e: int, dev):
+    """(pi, edges) where every hook lands on one address: ``consistent``,
+    every vertex already under root 0 (every atomic a no-op); ``hub``,
+    every edge (u, n - 1) on the identity (real work on one hi)."""
+    edges = _edges(n, e, seed=e, dev=dev)
+    if kind == "consistent":
+        return torch.zeros(n, dtype=torch.int32, device=dev), edges
+    edges[:, 1] = n - 1
+    return torch.arange(n, dtype=torch.int32, device=dev), edges
+
+
+@pytest.mark.parametrize("case", ("forest", "consistent", "hub"))
+@pytest.mark.parametrize("n,e", ((3000, 10007), (100000, 2000003)))
+@pytest.mark.parametrize("lift", (0, 1, 2))
+def test_hook_snapshot_kernel_matches_plain(dev, case, n, e, lift):
+    """The snapshot body (every SM) is bit-equal to ``hook_edges`` (one
+    snapshot) and leaves its input alone, on random forests and on the
+    single-address storms; so is the one-block tiled body at one tile
+    where that fits its shared memory."""
+    if case == "forest":
+        pi, edges = _forest(n, e + lift, dev), _edges(n, e, seed=n, dev=dev)
+    else:
+        pi, edges = _storm(case, n, e, dev)
+    keep = pi.clone()
+    before = (hook_ops.SNAPSHOT.launches, hook_ops.TILES.launches)
+    got = hook_ops.hook_edges_snapshot(pi, edges, lift_steps=lift)
+    want = rounds.hook_edges(pi, edges, lift_steps=lift)
+    torch.cuda.synchronize()
+    assert (hook_ops.SNAPSHOT.launches, hook_ops.TILES.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got, want)
+    assert torch.equal(pi, keep)
+    assert torch.equal(want, hook_ref.ref_hook_round(pi, edges, lift))
+    if case != "forest":
+        tiled = hook_ops.hook_edges_pallas(pi, edges, edge_tile=1000,
+                                           lift_steps=lift)
+        pad = (-e) % 1000
+        padded = torch.cat([edges, edges.new_zeros((pad, 2))])
+        assert torch.equal(tiled, hook_ref.ref_hook_tiled(pi, padded, 1000,
+                                                          lift))
+
+
+@pytest.mark.parametrize("case", ("consistent", "hub", "kron"))
+@pytest.mark.parametrize("lift", (0, 2))
+def test_cc_fused_kernel_on_single_address_storms_matches_plain(dev, case,
+                                                                 lift):
+    """The fused scan's no-op skip keeps pi and every segment's sweep
+    count bit-equal to plain where the hooks of a segment meet one
+    address: the storms above in 8 segments, and the kron-logn21
+    stand-in at scale 0.02 (its hub roots)."""
+    if case == "kron":
+        g = DeviceGraph.from_host(table1_scaled("kron-logn21", scale=0.02,
+                                                seed=1))
+        n, edges, plan, true = g.num_nodes, g.edges, g.plan, g.true_edges
+        pi0 = torch.arange(n, dtype=torch.int32, device=dev)
+    else:
+        n = 100000
+        pi0, edges = _storm(case, n, 2000000, dev)
+        plan, true = plan_segmentation(edges.shape[0], n, 8), edges.shape[0]
+    segs = rounds.pad_and_segment(edges, plan)
+    counts = rounds.segment_true_counts(true, plan, device=dev)
+    got = cc_ops.fused_segment_scan(pi0, segs, counts, lift_steps=lift)
+    want = cc_ref.ref_segment_scan(pi0, segs, counts, lift_steps=lift)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    # and the cleanup launch: the whole edge list as one segment
+    true1 = torch.tensor([true], dtype=torch.int32, device=dev)
+    flat = segs.reshape(1, -1, 2)
+    got = cc_ops.fused_segment_scan(want[0], flat, true1, lift_steps=lift)
+    want = cc_ref.ref_segment_scan(want[0], flat, true1, lift_steps=lift)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("n,tile", ((512, 512), (1000, 128), (4099, 512),
@@ -202,6 +277,10 @@ def test_wrappers_reject_bad_tensors(dev):
     with pytest.raises(ValueError):
         hook_ops.hook_edges_pallas(pi, edges.t())
     with pytest.raises(ValueError):
+        hook_ops.hook_edges_snapshot(pi.long(), edges)
+    with pytest.raises(ValueError):
+        hook_ops.hook_edges_snapshot(pi, edges.t())
+    with pytest.raises(ValueError):
         mj_ops.full_compress(pi[::2])
     with pytest.raises(ValueError):
         cc_ops.fused_segment_scan(pi, edges[None].cpu(),
@@ -218,12 +297,17 @@ def test_solves_on_card_match_oracle_and_counters(dev, name):
     before = cc_ops.KERNEL.launches
     fused = cc.solve_static(g, method="pallas_fused")
     launches = cc_ops.KERNEL.launches - before
+    hook_ops.KERNEL.launches = 0
     labels = cc.solve_pallas(g)
     np.testing.assert_array_equal(fused.labels.cpu().numpy(), want)
     np.testing.assert_array_equal(labels.cpu().numpy(), want)
     assert fused.work.as_ints() == adaptive.work.as_ints()
-    cleanup = adaptive.work.as_ints()["hook_rounds"] - g.plan.num_segments
+    hook_rounds = adaptive.work.as_ints()["hook_rounds"]
+    cleanup = hook_rounds - g.plan.num_segments
     assert launches == 1 + cleanup
+    # solve_pallas hooks on the snapshot body, once per adaptive hook round
+    assert hook_ops.SNAPSHOT.launches == hook_ops.KERNEL.launches == \
+        hook_rounds
 
 
 # ---------------------------------------------------------------------------
@@ -436,12 +520,47 @@ def test_recsys_path_launches_the_kernels(dev):
     for combine, launches in (("sum", 1), ("mean", 2)):
         sr_ops.KERNEL.launches = 0
         out = recsys.embedding_bag(model.table, cand[:30], bag_ids, 10,
-                                   combine)
+                                   combine, indices_are_sorted=True)
         assert sr_ops.KERNEL.launches == sr_ops.SORTED.launches == launches
         want = eb_ref.ref_embedding_bag(model.table, cand[:30].view(10, 3),
                                         combine)
         assert bool(((out.float() - want.float()).abs()
                      <= 2 * fa_ref.ulp_bf16(want)).all())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("combine", ("sum", "mean"))
+def test_embedding_bag_shuffled_bag_ids_on_card_match_plain(dev, combine,
+                                                            dtype):
+    """Bag ids in no order (rows of a bag not contiguous, some bags
+    empty) through ``recsys.embedding_bag`` on the card: the default
+    takes segment_reduce's atomic body, and the bags equal the plain
+    route's (the same call on the CPU): fp32 within 1e-5 (1 + |ref|),
+    two summation orders; bf16 within one ulp for sum (two fp32 sums of
+    another order, each rounded once) and three for mean (one ulp of the
+    sum over the count is under two ulps of the mean, and the division
+    rounds once on each side)."""
+    rng = np.random.default_rng(12)
+    lengths = rng.integers(0, 9, 3000)
+    bag_ids = torch.from_numpy(rng.permutation(np.repeat(
+        np.arange(3000), lengths)).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, 5000, bag_ids.shape[0]).astype(
+        np.int32))
+    table = _table(5000, 16, dtype, 7, dev)
+    sr_ops.KERNEL.launches = 0
+    got = recsys.embedding_bag(table, idx.to(dev), bag_ids.to(dev), 3000,
+                               combine)
+    torch.cuda.synchronize()
+    assert sr_ops.KERNEL.launches == sr_ops.ATOMIC.launches == (
+        1 if combine == "sum" else 2)
+    want = recsys.embedding_bag(table.cpu(), idx, bag_ids, 3000, combine)
+    got, want = got.cpu().float(), want.float()
+    if dtype == torch.float32:
+        assert bool(((got - want).abs() <= 1e-5 * (1 + want.abs())).all())
+    else:
+        ulps = 1 if combine == "sum" else 3
+        assert bool(((got - want).abs()
+                     <= ulps * fa_ref.ulp_bf16(want)).all())
 
 
 # (B, Sq = Sk, Hq, Hkv, d): ragged tails (no multiple of the 64-row

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _graphgen import corpus
 from repro.core import rounds as jr
 from repro.graphs.generators import table1_scaled
 from repro.kernels.cc_fused.cc_fused import cc_fused_pallas
@@ -21,7 +22,8 @@ from repro_torch.core.segmentation import plan_segmentation
 from repro_torch.kernels.cc_fused import ref as cc_ref
 from repro_torch.kernels.cc_fused.ops import fused_segment_scan
 from repro_torch.kernels.hook import ref as hook_ref
-from repro_torch.kernels.hook.ops import hook_edges_pallas
+from repro_torch.kernels.hook.ops import (hook_edges_pallas,
+                                         hook_edges_snapshot)
 from repro_torch.kernels.multi_jump import ref as mj_ref
 from repro_torch.kernels.multi_jump.ops import full_compress, multi_jump
 
@@ -105,6 +107,32 @@ def test_hook_plain_matches_pallas_interpret(tile, lift):
                                 torch.from_numpy(padded), tile, lift),
         jhook_ref.ref_hook_tiled(jnp.asarray(pi), jnp.asarray(padded),
                                  tile, lift))
+
+
+GRAPHS = [c for c in corpus() if c[2].shape[0] > 0]
+
+
+@pytest.mark.parametrize("lift", (0, 1, 2))
+@pytest.mark.parametrize("name,n,edges", GRAPHS, ids=[c[0] for c in GRAPHS])
+def test_hook_snapshot_plain_matches_pallas_interpret_at_one_tile(
+        name, n, edges, lift):
+    """``hook_edges_snapshot`` (on CPU tensors its plain version) is the
+    reference kernel at one tile over the whole edge list: the edges
+    padded with (0, 0) rows to a power of two, ``edge_tile`` that padded
+    count. The padding hooks nothing on a forest, so the unpadded list
+    gives the same π."""
+    pi = _forest(n, n + lift)
+    pad = 1 << (edges.shape[0] - 1).bit_length()
+    padded = np.concatenate([edges, np.zeros((pad - edges.shape[0], 2),
+                                             np.int32)])
+    want = jhook_ops.hook_edges_pallas(jnp.asarray(pi), jnp.asarray(padded),
+                                       edge_tile=pad, lift_steps=lift,
+                                       interpret=True)
+    for e in (padded, edges):
+        _eq(hook_edges_snapshot(torch.from_numpy(pi), torch.from_numpy(e),
+                                lift_steps=lift), want)
+    _eq(hook_ref.ref_hook_round(torch.from_numpy(pi),
+                                torch.from_numpy(padded), lift), want)
 
 
 @pytest.mark.parametrize("lift", (0, 2))

@@ -21,6 +21,7 @@ import torch
 
 from repro.kernels.embedding_bag import ops as jeb_ops
 from repro.kernels.segment_reduce import ops as jsr_ops
+from repro.models import recsys as jrecsys
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.segment_reduce import ops as sr_ops
 from repro_torch.kernels.segment_reduce.ref import reduce_identity
@@ -282,9 +283,11 @@ def test_segment_reduce_sorted_empty_input(op):
 
 
 def test_embedding_bag_takes_the_sorted_body(monkeypatch):
-    """``recsys.embedding_bag`` promises sorted bag ids for both of its
-    segment sums (the rows, and for ``mean`` the counts), as the
-    reference's ``segment_sum`` over them assumes."""
+    """``recsys.embedding_bag`` promises sorted bag ids to both of its
+    segment sums (the rows, and for ``mean`` the counts) only when the
+    caller passes ``indices_are_sorted=True``; by default, as the
+    reference's ``segment_sum`` call, it promises nothing and takes the
+    atomic body. Both give the same bags."""
     seen = []
 
     def record(*args, **kw):
@@ -295,12 +298,70 @@ def test_embedding_bag_takes_the_sorted_body(monkeypatch):
     table = torch.arange(40, dtype=torch.float32).reshape(10, 4)
     idx = torch.tensor([1, 2, 3, 4, 5], dtype=torch.int32)
     bags = torch.tensor([0, 0, 1, 3, 3], dtype=torch.int32)
+    for promise in ({}, {"indices_are_sorted": True}):
+        seen.clear()
+        for combine in ("sum", "mean"):
+            out = recsys.embedding_bag(table, idx, bags, 4, combine,
+                                       **promise)
+            want = torch.stack([table[1] + table[2], table[3],
+                                torch.zeros(4), table[4] + table[5]])
+            if combine == "mean":
+                want = want / torch.tensor([2.0, 1.0, 1.0, 2.0])[:, None]
+            assert torch.equal(out, want)
+        assert len(seen) == 3
+        assert all(kw.get("indices_are_sorted") is bool(promise)
+                   for kw in seen)
+
+
+@pytest.mark.parametrize("dtype", tuple(DTYPES))
+@pytest.mark.parametrize("combine", ("sum", "mean"))
+def test_embedding_bag_shuffled_bag_ids_match_reference(combine, dtype):
+    """Bag ids in no order (a bag's rows are not contiguous, some bags
+    empty) give the reference ``embedding_bag``'s bags. float32 within
+    1e-5 (two summation orders); bfloat16: the reference sums in a
+    bfloat16 ``segment_sum``, rounding each of a bag's H - 1 partial
+    sums by at most half an ulp of S = sum|row|, the port sums in fp32
+    and rounds once, so the two differ by at most (H/2) ulp(S) (over H
+    for ``mean``) plus one ulp of the result."""
+    rng = np.random.default_rng(11)
+    lengths = rng.integers(0, 7, 50)
+    bag_ids = rng.permutation(np.repeat(np.arange(50), lengths)).astype(
+        np.int32)
+    assert np.any(np.diff(bag_ids) < 0)
+    idx = rng.integers(0, 300, bag_ids.size).astype(np.int32)
+    jt, tt = _pair(rng.standard_normal((300, 16)), dtype)
+    want = np.asarray(jrecsys.embedding_bag(
+        jt, jnp.asarray(idx), jnp.asarray(bag_ids), 50, combine),
+        np.float32)
+    got = recsys.embedding_bag(tt, torch.from_numpy(idx),
+                               torch.from_numpy(bag_ids), 50, combine)
+    assert got.dtype == tt.dtype and got.shape == (50, 16)
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), want, atol=1e-5, rtol=1e-5)
+        return
+    mag = np.zeros((50, 16), np.float32)
+    np.add.at(mag, bag_ids, np.abs(_np(tt)[idx]))
+    h = lengths[:, None].astype(np.float32)
+    tol = 0.5 * h * bf16_ulp(mag) / (np.maximum(h, 1) if combine == "mean"
+                                     else 1) + bf16_ulp(want)
+    assert np.all(np.abs(_np(got) - want) <= tol)
+
+
+def test_broken_sorted_promise_raises_on_the_cpu():
+    """``indices_are_sorted=True`` over ids that are not ascending raises
+    on the CPU route, in ``segment_reduce`` and through
+    ``recsys.embedding_bag``; ascending ids with repeats keep it."""
+    table = torch.arange(40, dtype=torch.float32).reshape(10, 4)
+    idx = torch.tensor([1, 2, 3, 4, 5], dtype=torch.int32)
+    bags = torch.tensor([0, 3, 1, 3, 0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="ascending"):
+        sr_ops.segment_reduce(table[:5], bags, 4, indices_are_sorted=True)
     for combine in ("sum", "mean"):
-        out = recsys.embedding_bag(table, idx, bags, 4, combine)
-        want = torch.stack([table[1] + table[2], table[3],
-                            torch.zeros(4), table[4] + table[5]])
-        if combine == "mean":
-            want = want / torch.tensor([2.0, 1.0, 1.0, 2.0])[:, None]
-        assert torch.equal(out, want)
-    assert len(seen) == 3
-    assert all(kw.get("indices_are_sorted") is True for kw in seen)
+        with pytest.raises(ValueError, match="ascending"):
+            recsys.embedding_bag(table, idx, bags, 4, combine,
+                                 indices_are_sorted=True)
+    ordered = torch.sort(bags).values
+    assert torch.equal(
+        sr_ops.segment_reduce(table[:5], ordered, 4,
+                              indices_are_sorted=True),
+        sr_ops.segment_reduce(table[:5], ordered, 4))
