@@ -108,6 +108,36 @@ weights from a seeded generator):
     step's device time and idle share from ``torch.profiler``, peak
     device memory.
 
+then the front door of the CC system (``repro_torch.api``), on phase
+3's graphs and oracle labels:
+
+14. on usa-osm and kron-logn21 at scale 1.0: ``solve_forest(method=
+    "adaptive")`` (labels equal the oracle; labels and WorkCounters
+    equal ``solve_static(method="adaptive")``; ``spanning_forest_stats``
+    consistent; host-side, scipy over the recorded rows finds C
+    components in |V| - C rows, so the forest is acyclic, and its
+    partition equals the labels); ``sampled`` and ``sampled_fused``
+    (labels equal the oracle, equal counters, the fused kernel's
+    launches counted from 0 over the ``sampled_fused`` solve and at
+    least 1); ``Solver.open(g, policy_cache=AutotuneCache(None))``: the
+    cold plan (``explain()`` printed; the heuristic's backend and
+    reason: ``adaptive`` on usa, ``sampled`` on kron), its labels, the
+    ``pallas`` backend through the session (K2's snapshot body launched
+    once per hook round); then ``cache.measure`` over adaptive,
+    atomic_hook, pallas_fused and sampled (``labelprop`` is left out at
+    this scale: on the road graph it runs towards its 4096-round cap),
+    after which the plan reports ``autotune`` and its labels equal the
+    oracle; the queries against numpy over the oracle labels
+    (``same_component`` on 1,000,000 seeded pairs, ``component_size``,
+    ``count_components``, ``component_histogram``); then times (CUDA
+    events, median of 3 after a warm-up) of the forest, sampled,
+    sampled_fused and warm-cache ``solve()`` solves and of each query,
+    and each solve's device time by kernel and op from
+    ``torch.profiler``;
+15. parity constants: the four stand-ins at scale 0.002 give the
+    reference's ``sampled`` / ``sampled_fused`` hook_ops, n_residue and
+    giant_size on the card.
+
 It prints informative lines, then one JSON line of per-kernel numbers,
 then, as its last line, ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or away from the repository, it exits non-zero and prints
@@ -144,6 +174,18 @@ PARITY = {
 }
 COUNTERS = ("hook_ops", "jump_ops", "jump_sweeps", "hook_rounds",
             "sync_rounds")
+# table1_scaled(name, scale=0.002, seed=1), the sampled engines:
+# (hook_ops, n_residue, giant_size), the reference's
+SAMPLED_PARITY = {
+    "usa-osm": (547122, 2069, 6917),
+    "euro-osm-karls": (3969060, 15445, 25936),
+    "soc-live-journal": (85488, 0, 7514),
+    "kron-logn21": (22092, 0, 1911),
+}
+# the autotune candidates timed at full scale: AUTOTUNE_METHODS without
+# labelprop, which on the road graph runs towards its 4096-round cap
+MEASURED = ("adaptive", "atomic_hook", "pallas_fused", "sampled")
+QUERY_PAIRS = 1_000_000
 
 
 def check(cond: bool, msg: str) -> None:
@@ -202,18 +244,31 @@ def top_device_ops(events, reps: int, n: int = 6) -> dict:
     return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:n])
 
 
+def profiled(torch, fn, reps: int = 1):
+    """Runs ``fn`` ``reps`` times under ``torch.profiler`` and returns
+    the profile. A profile that holds no device event at all (the device
+    trace of a session can come back empty) is taken again, up to three
+    times; the launch checks stay with the callers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        if any(e.device_type != DeviceType.CPU for e in prof.events()):
+            break
+    return prof
+
+
 def device_kernels(torch, fn, reps: int = 1) -> tuple[dict, float]:
     """Runs ``fn`` ``reps`` times under ``torch.profiler``. Returns
     ({kernel name cut to 60 characters: {"ms": summed device ms,
     "launches": count}} per repetition, the device time of all kernels
     and copies per repetition)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof = profiled(torch, fn, reps)
     ev = [e for e in prof.key_averages()
           if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
     out = {}
@@ -230,11 +285,7 @@ def launch_ms(torch, fn, symbol: str) -> list:
     ``symbol``, in launch order, over one call of ``fn`` under
     ``torch.profiler``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof = profiled(torch, fn)
     ev = sorted((e for e in prof.events()
                  if e.device_type != DeviceType.CPU and symbol in e.name),
                 key=lambda e: e.time_range.start)
@@ -570,7 +621,6 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
 
     # -- 10. where the serving time goes -----------------------------------
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for s in ("serve_p99", "serve_bulk", "retrieval_cand"):
         b = host[s]
         args = (b, cand_host) if s == "retrieval_cand" else (b,)
@@ -586,11 +636,7 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
                 model, recsys.cross_deep(model, x0), eb_ops.embedding_bag(
                     table, cand[:, None]))),
         }
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                cells[s].step(model, *args)
-            torch.cuda.synchronize()
+        prof = profiled(torch, lambda: cells[s].step(model, *args), 3)
         # device-side events only (kernels, copies): a CPU op's device
         # time repeats the time of the kernels it launched
         ev = [e for e in prof.key_averages()
@@ -1047,7 +1093,6 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
 
     # -- 13. serving times --------------------------------------------------
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     ttft = {}
     for p in prompts:
         def first_token(p=p):
@@ -1080,11 +1125,7 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
     def device_profile(fn, reps: int):
         """Device time per call of ``fn`` (kernels and copies, device-side
         events only), that of the flash kernel, and the top ops."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        prof = profiled(torch, fn, reps)
         ev = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU
               and e.self_device_time_total > 0]
@@ -1117,6 +1158,200 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
         launches_by_body=fa_bodies, build=wgmma_build,
         also=[fa[k] for k in fa if k != "global_8192_nocap"])
     return {"gemma2-2b": times}
+
+
+def numpy_histogram(np, labels):
+    """Components per power-of-two size bin, from host labels."""
+    census = np.bincount(labels, minlength=labels.shape[0])
+    sizes = census[census > 0]
+    nbins = max(int(labels.shape[0] - 1).bit_length() + 1, 1)
+    bins = np.array([int(x).bit_length() - 1 for x in sizes], np.int64)
+    return np.bincount(bins, minlength=nbins).astype(np.int32)
+
+
+def front_door_phases(torch, np, dev, rows: dict, card: str, graphs: dict,
+                      oracles: dict) -> dict:
+    """Phases 14-15: the forest, the sampled engines, ``Solver`` with
+    its policy and autotune cache, and the queries, on phase 3's graphs
+    and oracle labels."""
+    from repro_torch.api import Solver
+    from repro_torch.connectivity import policy, queries
+    from repro_torch.core import cc, sampled
+    from repro_torch.core.unionfind import connected_components_scipy
+    from repro_torch.graphs.device import DeviceGraph
+    from repro_torch.graphs.generators import table1_scaled
+    from repro_torch.kernels.cc_fused import ops as cc_ops
+    from repro_torch.kernels.hook import ops as hook_ops
+    from repro_torch.kernels.multi_jump import ops as mj_ops
+
+    # -- 14. the front door at full scale -------------------------------------
+    out = {}
+    fused_launches = {}
+    t_phase = time.perf_counter()
+    for name, g in graphs.items():
+        want = oracles[name]
+        v = g.num_nodes
+        ncomp = len(np.unique(want))
+        res = {}
+        forest = cc.solve_forest(g, method="adaptive")
+        adaptive = cc.solve_static(g, method="adaptive")
+        check(np.array_equal(forest.labels.cpu().numpy(), want),
+              f"solve_forest labels differ from the oracle on {name}")
+        check(torch.equal(forest.labels, adaptive.labels)
+              and forest.work.as_ints() == adaptive.work.as_ints(),
+              f"solve_forest labels or counters differ from adaptive's "
+              f"on {name}")
+        fstats = {k: int(x) for k, x in queries.spanning_forest_stats(
+            forest.labels, forest.parents).items()}
+        check(fstats["count_consistent"] == 1
+              and fstats["edges_intra_component"] == 1,
+              f"spanning_forest_stats of {name}: {fstats}")
+        parents = forest.parents.cpu().numpy()
+        recorded = parents[parents[:, 0] >= 0]
+        check(recorded.shape[0] == v - ncomp,
+              f"the forest of {name} has {recorded.shape[0]} rows, not "
+              f"|V| - C = {v - ncomp}")
+        check(np.array_equal(connected_components_scipy(recorded, v), want),
+              f"the forest's partition differs from the labels on {name}")
+        print(f"forest {name}: labels == oracle, == adaptive (counters "
+              f"{adaptive.work.as_ints()}); {recorded.shape[0]} rows = "
+              f"|V| - C, acyclic, partition == labels; stats {fstats}")
+
+        plain = sampled.solve_sampled(g, fused=False)
+        cc_ops.KERNEL.launches = 0
+        fused = sampled.solve_sampled(g, fused=True)
+        torch.cuda.synchronize()
+        fused_launches[name] = cc_ops.KERNEL.launches
+        for label, r in (("sampled", plain), ("sampled_fused", fused)):
+            check(np.array_equal(r.labels.cpu().numpy(), want),
+                  f"{label} labels differ from the oracle on {name}")
+        check(plain.work.as_ints() == fused.work.as_ints(),
+              f"sampled and sampled_fused counters differ on {name}")
+        check(fused_launches[name] >= 1,
+              f"sampled_fused did not launch cc_fused on {name}")
+        st = {k: int(x) for k, x in fused.stats.items()}
+        check(st == {k: int(x) for k, x in plain.stats.items()},
+              f"sampled and sampled_fused stats differ on {name}")
+        print(f"sampled {name}: labels == oracle (both); counters "
+              f"{plain.work.as_ints()}; n_sampled {st['n_sampled']} "
+              f"n_residue {st['n_residue']} giant_size {st['giant_size']}; "
+              f"cc_fused launches under sampled_fused "
+              f"{fused_launches[name]}")
+        res["sampled_stats"] = st
+
+        s = Solver.open(g, policy_cache=policy.AutotuneCache(None))
+        plan = s.plan()
+        print(f"plan {name} (cold cache):\n{plan.explain()}")
+        expect = policy.heuristic_method(policy.extract_features(
+            v, g.num_edges, degree_skew=g.degree_skew))
+        check((plan.backend, plan.reason) == (expect, "heuristic")
+              and expect == {"usa-osm": "adaptive",
+                             "kron-logn21": "sampled"}[name],
+              f"cold plan on {name}: {plan.backend} ({plan.reason}), "
+              f"heuristic {expect}")
+        check(np.array_equal(s.solve().labels.cpu().numpy(), want),
+              f"Solver.solve labels differ from the oracle on {name}")
+        hook_ops.KERNEL.launches = 0
+        mj_ops.KERNEL.launches = 0
+        per_round = s.solve(backend="pallas")
+        torch.cuda.synchronize()
+        rounds_ = adaptive.work.as_ints()["hook_rounds"]
+        check(hook_ops.SNAPSHOT.launches == hook_ops.KERNEL.launches
+              == rounds_ and mj_ops.ROOTS.launches == rounds_
+              and np.array_equal(per_round.labels.cpu().numpy(), want),
+              f"Solver backend pallas on {name}: hook launches "
+              f"{hook_ops.SNAPSHOT.launches}/{hook_ops.KERNEL.launches}, "
+              f"compress {mj_ops.ROOTS.launches}, hook rounds {rounds_}")
+
+        winner = s.policy_cache.measure(g, methods=MEASURED, reps=2)
+        tuned = s.plan()
+        check((tuned.backend, tuned.reason) == (winner, "autotune"),
+              f"warm plan on {name}: {tuned.backend} ({tuned.reason}), "
+              f"measured winner {winner}")
+        check(np.array_equal(s.solve().labels.cpu().numpy(), want),
+              f"autotuned Solver.solve labels differ on {name}")
+        res["autotune_ms"] = dict(s.policy_cache.last_timings)
+        res["autotune_winner"] = winner
+        print(f"autotune {name} ({card}): {res['autotune_ms']} -> "
+              f"{winner}; plan {tuned.backend} ({tuned.reason}); labels "
+              f"== oracle")
+
+        labels = s.labels
+        rng = np.random.default_rng(7)
+        pairs = rng.integers(0, v, (QUERY_PAIRS, 2)).astype(np.int32)
+        pairs_d = torch.from_numpy(pairs).to(dev)
+        verts_d = pairs_d[:, 0].contiguous()
+        census = np.bincount(want, minlength=v)
+        got = queries.to_host(queries.same_component(labels, pairs_d))
+        check(np.array_equal(got, want[pairs[:, 0]] == want[pairs[:, 1]]),
+              f"same_component differs from numpy on {name}")
+        got = queries.to_host(queries.component_size(labels, verts_d))
+        check(np.array_equal(got, census[want[pairs[:, 0]]]),
+              f"component_size differs from numpy on {name}")
+        check(int(queries.count_components(labels)) == ncomp,
+              f"count_components differs from the oracle on {name}")
+        hist = queries.to_host(queries.component_histogram(labels))
+        check(np.array_equal(hist, numpy_histogram(np, want)),
+              f"component_histogram differs from numpy on {name}")
+        print(f"queries {name}: same_component ({QUERY_PAIRS} pairs), "
+              f"component_size, count_components ({ncomp}), "
+              f"component_histogram == numpy")
+
+        solves = {
+            "solve_forest": lambda: cc.solve_forest(g, method="adaptive"),
+            "sampled": lambda: sampled.solve_sampled(g, fused=False),
+            "sampled_fused": lambda: sampled.solve_sampled(g, fused=True),
+            "solve_auto_warm": lambda: s.solve(),
+        }
+        res["ms"] = {k: time_ms(torch, fn) for k, fn in solves.items()}
+        res["query_ms"] = {
+            "same_component": time_ms(torch, lambda: queries.same_component(
+                labels, pairs_d)),
+            "component_size": time_ms(torch, lambda: queries.component_size(
+                labels, verts_d)),
+            "count_components": time_ms(
+                torch, lambda: queries.count_components(labels)),
+            "component_histogram": time_ms(
+                torch, lambda: queries.component_histogram(labels)),
+        }
+        print(f"front door {name} ({card}): solves {res['ms']}; queries "
+              f"{res['query_ms']}")
+        res["device_ms"], res["top_device_ops"] = {}, {}
+        for k, fn in solves.items():
+            per_kernel, total = device_kernels(torch, fn)
+            res["device_ms"][k] = total
+            res["top_device_ops"][k] = dict(list(per_kernel.items())[:8])
+            print(f"profile {name} {k} ({card}): device {total:.3f} ms; top "
+                  f"{res['top_device_ops'][k]}")
+            if k == "sampled_fused":
+                rows["cc_fused"].setdefault("main_path_device_ms", {})[
+                    f"{name} sampled_fused"] = kernel_share(
+                        per_kernel, "cc_fused_kernel")
+        out[f"front_door {name}"] = res
+    rows["cc_fused"]["launches_sampled_fused"] = fused_launches
+    print(f"front door: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 15. parity constants of the sampled engines at scale 0.002 ----------
+    for name, (hook_ops_, n_residue, giant) in SAMPLED_PARITY.items():
+        g = DeviceGraph.from_host(table1_scaled(name, scale=0.002, seed=1),
+                                  device=dev)
+        want = connected_components_scipy(g.edges.cpu().numpy(),
+                                          g.num_nodes)
+        works = []
+        for fused in (False, True):
+            r = sampled.solve_sampled(g, fused=fused)
+            got = (int(r.work.hook_ops), int(r.stats["n_residue"]),
+                   int(r.stats["giant_size"]))
+            check(got == (hook_ops_, n_residue, giant),
+                  f"{name} sampled (fused={fused}) constants {got}")
+            check(np.array_equal(r.labels.cpu().numpy(), want),
+                  f"{name} sampled (fused={fused}) labels")
+            works.append(r.work.as_ints())
+        check(works[0] == works[1], f"{name} sampled counters differ")
+        print(f"parity {name} @0.002: sampled / sampled_fused hook_ops "
+              f"{hook_ops_}, n_residue {n_residue}, giant_size {giant} "
+              "reproduced")
+    return out
 
 
 def main() -> int:
@@ -1398,10 +1633,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s, launches {launches}")
     for n, count in launches.items():
         check(count > 0, f"kernel {n} was not launched on the main path")
+    oracles = {}
     for name, g in graphs.items():
         fused, fused_launches, labels, hook_launches = results[name]
         want = connected_components_scipy(g.edges.cpu().numpy(),
                                           g.num_nodes)
+        oracles[name] = want
         check(np.array_equal(fused.labels.cpu().numpy(), want),
               f"pallas_fused labels differ from the oracle on {name}")
         check(np.array_equal(labels.cpu().numpy(), want),
@@ -1516,6 +1753,10 @@ def main() -> int:
 
     # -- 11.-13. the LM serving slice -----------------------------------------
     e2e.update(lm_phases(torch, np, dev, rows, card))
+
+    # -- 14.-15. the front door ----------------------------------------------
+    e2e.update(front_door_phases(torch, np, dev, rows, card, graphs,
+                                 oracles))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,8 +1,11 @@
 """repro_torch — the PyTorch/CUDA port of ``repro``, slice by slice:
 
   * adaptive work-efficient connected components (the static solve
-    path), with hand-written Hopper kernels behind the ``pallas`` and
-    ``pallas_fused`` backends (``core``, ``graphs``);
+    path, the spanning forest, the sampled engines, the queries and the
+    ``Solver`` front door with its method policy), with hand-written
+    Hopper kernels behind the ``pallas``, ``pallas_fused`` and
+    ``sampled_fused`` backends (``core``, ``graphs``, ``connectivity``,
+    ``api``, ``obs``);
   * the recsys serving path: DCN-v2 ``serve`` and ``retrieval`` cells
     (``launch.steps.build_cell``, ``models.recsys``, ``configs``,
     ``data.pipeline``), with the embedding-bag and segment-reduce
@@ -12,15 +15,30 @@
     ``generate`` (``models.transformer``, ``configs``), with the
     flash-attention kernel behind every prefill attention.
 
+Its front door is ``Solver`` / ``solve`` (``repro_torch.api``), as in
+the reference::
+
+    from repro_torch import Solver, solve
+
+    res = solve(edges, num_nodes)            # one-shot, method="auto"
+    s = Solver.open(edges, num_nodes)        # a session
+    print(s.plan().explain())                # the adaptive decision
+
 It imports ``torch`` and ``numpy`` (``scipy`` lazily) and nothing of
 ``jax`` or ``repro``. Entry points run on CUDA unless the caller passes
 ``device="cpu"``. The recsys and LM modules load on import of their own
 submodules, not of this package.
 """
+from repro_torch.api import (BACKENDS, Backend, Capabilities,
+                             ExecutionPlan, Solver, available_backends,
+                             capability_matrix, get_backend,
+                             register_backend, solve)
 from repro_torch.core.cc import (CCResult, solve_hostloop, solve_pallas,
                                  solve_static)
 from repro_torch.core.rounds import WorkCounters
 from repro_torch.graphs.device import DeviceGraph
 
-__all__ = ["CCResult", "DeviceGraph", "WorkCounters", "solve_hostloop",
-           "solve_pallas", "solve_static"]
+__all__ = ["BACKENDS", "Backend", "CCResult", "Capabilities", "DeviceGraph",
+           "ExecutionPlan", "Solver", "WorkCounters", "available_backends",
+           "capability_matrix", "get_backend", "register_backend", "solve",
+           "solve_hostloop", "solve_pallas", "solve_static"]

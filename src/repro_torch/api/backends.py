@@ -1,0 +1,127 @@
+"""The built-in static backends of ``repro.api.backends``, one decorator
+each: the wiring between the facade and the engines.
+
+Counter semantics: backends with ``bit_exact_counters=True`` return
+exact true-work ``WorkCounters`` (padding never billed), equal to the
+reference's. The per-round kernel backend ``pallas`` and ``hostloop``
+return labels with zero or partial counters.
+
+On a CUDA graph, ``pallas_fused`` and ``sampled_fused`` run the fused
+segment-scan kernel and ``pallas`` the hook and multi_jump kernels; a
+kernel that does not build or launch raises.
+
+Not registered yet: ``batched`` (ROADMAP.md queue A, item A8),
+``incremental`` and ``dynamic`` (A6), ``distributed`` (A10).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.api.plan import ExecutionPlan
+from repro_torch.api.registry import Capabilities, register_backend
+from repro_torch.core import cc as cc_mod
+from repro_torch.core.cc import CCResult
+from repro_torch.core.rounds import WorkCounters
+
+__all__ = []            # nothing public; importing registers everything
+
+
+# ---------------------------------------------------------------------------
+# Single-graph torch-op variants (the paper's Fig. 5 ladder)
+# ---------------------------------------------------------------------------
+
+def _register_variant(method: str) -> None:
+    @register_backend(
+        method,
+        Capabilities(static=True, bit_exact_counters=True,
+                     spanning_forest=method in cc_mod.FOREST_METHODS))
+    def _run(plan: ExecutionPlan, _method=method) -> CCResult:
+        return cc_mod.solve_static(plan.graph, method=_method,
+                                   num_segments=plan.num_segments,
+                                   lift_steps=plan.lift_steps)
+
+
+for _m in cc_mod.METHODS:       # soman multijump atomic_hook adaptive labelprop
+    _register_variant(_m)
+
+
+# ---------------------------------------------------------------------------
+# Kernel backends
+# ---------------------------------------------------------------------------
+
+@register_backend("pallas_fused",
+                  Capabilities(static=True, bit_exact_counters=True))
+def _pallas_fused(plan: ExecutionPlan) -> CCResult:
+    """The whole Fig. 4 segment scan in one launch of the fused kernel;
+    labels and counters equal the torch-ops adaptive composition's."""
+    return cc_mod.solve_static(plan.graph, method=cc_mod.FUSED_METHOD,
+                               num_segments=plan.num_segments,
+                               lift_steps=plan.lift_steps)
+
+
+@register_backend("pallas", Capabilities(static=True,
+                                         bit_exact_counters=False))
+def _pallas_per_round(plan: ExecutionPlan) -> CCResult:
+    """Per-round kernels: one hook launch per segment and cleanup round,
+    one compress launch after each. Labels only: the counters are zeros
+    by contract."""
+    labels = cc_mod.solve_pallas(plan.graph,
+                                 num_segments=plan.num_segments,
+                                 lift_steps=plan.lift_steps)
+    return CCResult(labels, WorkCounters.zeros(labels.device))
+
+
+# ---------------------------------------------------------------------------
+# Sampling-accelerated backends (k-out / Afforest-style)
+# ---------------------------------------------------------------------------
+
+def _run_sampled(plan: ExecutionPlan, fused: bool) -> CCResult:
+    from repro_torch.core import sampled as sampled_mod
+    res = sampled_mod.solve_sampled(plan.graph,
+                                    num_segments=plan.num_segments,
+                                    lift_steps=plan.lift_steps,
+                                    fused=fused)
+    # phase-split telemetry, read once after the solve
+    plan.artifacts["sampled_stats"] = {k: int(v)
+                                       for k, v in res.stats.items()}
+    return CCResult(res.labels, res.work)
+
+
+@register_backend("sampled",
+                  Capabilities(static=True, bit_exact_counters=True,
+                               spanning_forest=True))
+def _sampled(plan: ExecutionPlan) -> CCResult:
+    """The k-out sampling phase collapses the giant component, then the
+    adaptive Fig. 4 scan covers the residue only. The sample-vs-residue
+    work split lands in ``plan.artifacts["sampled_stats"]``."""
+    return _run_sampled(plan, fused=False)
+
+
+@register_backend("sampled_fused",
+                  Capabilities(static=True, bit_exact_counters=True))
+def _sampled_fused(plan: ExecutionPlan) -> CCResult:
+    """``sampled`` with the residue scan on the fused kernel. The kernel
+    records no forest edges, so this variant does not claim
+    ``spanning_forest``."""
+    return _run_sampled(plan, fused=True)
+
+
+# ---------------------------------------------------------------------------
+# Host-driven baseline loop (the GPU baseline's syncs)
+# ---------------------------------------------------------------------------
+
+@register_backend("hostloop", Capabilities(static=True, device_loop=False,
+                                           bit_exact_counters=False))
+def _hostloop(plan: ExecutionPlan) -> CCResult:
+    """Soman/multijump under host control flow: one device round trip
+    per convergence check. The raw loop stats land in
+    ``plan.artifacts["hostloop_stats"]``."""
+    g = plan.graph
+    labels, stats = cc_mod.solve_hostloop(
+        g.edges[:g.true_edges], g.num_nodes,
+        method=plan.opts.get("hostloop_method", "soman"))
+    plan.artifacts["hostloop_stats"] = stats
+    work = WorkCounters.zeros(g.device).add(
+        hook_rounds=stats["hook_rounds"], jump_sweeps=stats["jump_sweeps"],
+        sync_rounds=stats["sync_rounds"])
+    return CCResult(torch.from_numpy(labels).to(g.device), work)

@@ -17,6 +17,11 @@ two kernel backends:
                        one launch per scan and per cleanup round.
   * ``solve_pallas`` — ``adaptive`` over the per-round hook and
                        multi_jump kernels (backend ``pallas``).
+  * ``sampled``, ``sampled_fused`` — the k-out sampling engines
+                       (``repro_torch.core.sampled``).
+
+``solve_forest`` runs the forest-recording twins of the hook-round
+variants and returns the spanning forest beside the labels.
 
 The backend names are the reference's, so that code keyed on them reads
 the same in both packages. Every variant returns canonical labels
@@ -48,14 +53,34 @@ _MAX_ROUNDS = rounds.MAX_ROUNDS   # outer hook-round fuel
 
 METHODS = ("soman", "multijump", "atomic_hook", "adaptive", "labelprop")
 FUSED_METHOD = "pallas_fused"
+# the k-out sampling engines: the sample phase collapses the giant
+# component, the adaptive scan covers the residue only
+SAMPLED_METHODS = ("sampled", "sampled_fused")
+ALL_METHODS = METHODS + (FUSED_METHOD,) + SAMPLED_METHODS
 HOSTLOOP_METHODS = ("soman", "multijump")
-# not in this package yet: "auto" needs the method policy, the sampled
-# engines come later (ROADMAP.md queue A)
-_NOT_PORTED = {"auto": "A4", "sampled": "A7", "sampled_fused": "A7"}
+# the methods whose torch-op hook rounds record the spanning forest
+# (labelprop hooks nothing; the fused kernel records nothing;
+# sampled_fused records its sample phase only, so it does not claim it)
+FOREST_METHODS = ("soman", "multijump", "atomic_hook", "adaptive",
+                  "sampled")
 
 
 class CCResult(NamedTuple):
     labels: torch.Tensor      # int32 [V]; labels[v] = min id of v's component
+    work: WorkCounters
+
+
+class ForestResult(NamedTuple):
+    """Labels plus the spanning forest recorded during hook rounds.
+
+    ``parents`` is int32 [V, 2]: row r holds the graph edge whose hook
+    retired root r; rows left (-1, -1) are the component roots, one per
+    component, each its component's minimum. The recorded rows are |V| -
+    C edges forming a spanning forest whose partition equals
+    ``labels``."""
+
+    labels: torch.Tensor
+    parents: torch.Tensor
     work: WorkCounters
 
 
@@ -139,9 +164,10 @@ def solve_static(
         ``Graph``, or a raw [E, 2] int edge array (needs ``num_nodes``).
       num_nodes: |V| (only for raw edge arrays).
       method: ``soman | multijump | atomic_hook | adaptive | labelprop
-        | pallas_fused``. ``auto`` (method policy) and the sampled
-        engines are not in this package yet and raise
-        ``NotImplementedError``.
+        | pallas_fused | sampled | sampled_fused``, or ``auto``: the
+        method policy (``repro_torch.connectivity.policy``) picks from
+        the graph's size, density and degree skew, or from a measured
+        autotune cache entry.
       num_segments: override the adaptive 2|E|/|V| heuristic.
       lift_steps: bounded root-chase depth of the Atomic-Hook analogue.
       device: where host input goes (CUDA when None).
@@ -159,10 +185,16 @@ def solve_static(
         return CCResult(torch.arange(g.num_nodes, dtype=torch.int32,
                                      device=g.device),
                         WorkCounters.zeros(g.device))
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet (ROADMAP.md queue A, "
-            f"item {_NOT_PORTED[method]})")
+    if method == "auto":
+        from repro_torch.connectivity.policy import select_method
+        method = select_method(g.num_nodes, g.num_edges,
+                               degree_skew=g.degree_skew)
+    if method in SAMPLED_METHODS:
+        from repro_torch.core.sampled import solve_sampled
+        res = solve_sampled(g, num_segments=num_segments,
+                            lift_steps=lift_steps,
+                            fused=(method == "sampled_fused"))
+        return CCResult(res.labels, res.work)
     # exact-sized graphs bill the stored row count; padded graphs their
     # true count
     t = g.true_edges
@@ -183,7 +215,82 @@ def solve_static(
         from repro_torch.core.labelprop import _cc_labelprop
         return _cc_labelprop(g.edges, g.num_nodes, true)
     raise ValueError(f"unknown method {method!r}; choose from "
-                     f"{METHODS + (FUSED_METHOD,)}")
+                     f"{ALL_METHODS}")
+
+
+# ---------------------------------------------------------------------------
+# Spanning-forest solves (forest recorded during hook rounds)
+# ---------------------------------------------------------------------------
+
+def _cc_forest(edges: torch.Tensor, num_nodes: int, method: str,
+               num_segments: int, lift_steps: int = 2,
+               true_edges=None) -> ForestResult:
+    """Forest-recording twin of the hook-round variants: the same π
+    updates and billing, with the parent-edge table threaded through
+    every hook."""
+    dev = edges.device
+    e = edges.shape[0] if true_edges is None else true_edges
+    pi = torch.arange(num_nodes, dtype=torch.int32, device=dev)
+    parents = rounds.empty_forest(num_nodes, dev)
+    work = WorkCounters.zeros(dev)
+    if method in ("soman", "multijump"):
+        count_syncs = method == "soman"
+        changed, n = True, 0
+        while changed and n < _MAX_ROUNDS:
+            new_pi, parents = rounds.hook_edges_forest(pi, parents, edges,
+                                                       lift_steps=0)
+            changed = bool((new_pi != pi).any())
+            work = work.add(hook_ops=e, hook_rounds=1,
+                            sync_rounds=1 if count_syncs else 2)
+            pi, work = compress(new_pi, work, count_syncs=count_syncs)
+            n += 1
+        return ForestResult(pi, parents, work)
+    if method == "atomic_hook":
+        pi, parents, work = rounds.forest_cleanup_rounds(
+            pi, parents, edges, work, true_edges=e, lift_steps=lift_steps)
+        return ForestResult(pi, parents, work.add(sync_rounds=1))
+    if method == "adaptive":
+        plan = plan_segmentation(edges.shape[0], num_nodes, num_segments)
+        pi, parents, work = rounds.forest_adaptive_rounds(
+            edges, num_nodes, plan, lift_steps=lift_steps, true_edges=e)
+        return ForestResult(pi, parents, work.add(sync_rounds=1))
+    raise ValueError(f"unknown forest method {method!r}; choose from "
+                     f"{FOREST_METHODS}")
+
+
+def solve_forest(graph, num_nodes: int | None = None,
+                 method: str = "adaptive", *,
+                 num_segments: int | None = None, lift_steps: int = 2,
+                 device=None) -> ForestResult:
+    """Connected components with the spanning forest the hook rounds
+    record (the engine entry behind ``Solver.spanning_forest()``).
+
+    ``method`` is one of ``FOREST_METHODS``; ``sampled`` records during
+    both its sample phase and its residue scan. Labels and WorkCounters
+    are those of ``solve_static`` with the same method."""
+    if method not in FOREST_METHODS:
+        raise ValueError(f"method {method!r} does not record a spanning "
+                         f"forest; choose from {FOREST_METHODS}")
+    g = as_device_graph(graph, num_nodes, num_segments=num_segments,
+                        device=device)
+    if g.num_nodes <= 0:
+        return ForestResult(
+            torch.zeros((0,), dtype=torch.int32, device=g.device),
+            rounds.empty_forest(0, g.device), WorkCounters.zeros(g.device))
+    if g.edges.shape[0] == 0 or g.true_edges == 0:
+        return ForestResult(
+            torch.arange(g.num_nodes, dtype=torch.int32, device=g.device),
+            rounds.empty_forest(g.num_nodes, g.device),
+            WorkCounters.zeros(g.device))
+    if method == "sampled":
+        from repro_torch.core.sampled import solve_sampled
+        res = solve_sampled(g, num_segments=num_segments,
+                            lift_steps=lift_steps, fused=False)
+        return ForestResult(res.labels, res.parents, res.work)
+    t = g.true_edges
+    true = None if t == int(g.edges.shape[0]) else t
+    return _cc_forest(g.edges, g.num_nodes, method, g.plan.num_segments,
+                      lift_steps, true)
 
 
 def solve_pallas(graph, num_nodes: int | None = None, *,

@@ -1,9 +1,11 @@
-"""Adaptive hook+compress round machinery (the non-forest half of
-``repro.core.rounds``), on torch tensors.
+"""Adaptive hook+compress round machinery of ``repro.core.rounds``, on
+torch tensors.
 
 Deterministic Hook (scatter-min with bounded root chase), Compress
-(Jacobi pointer doubling to a fixpoint), the work counters, and the
-segment-scan / cleanup-loop composition of the paper's Fig. 4.
+(Jacobi pointer doubling to a fixpoint), the work counters, the
+segment-scan / cleanup-loop composition of the paper's Fig. 4, and the
+same compositions with the spanning forest recorded as they hook. The
+id-recording forest rounds of the dynamic engine are not here yet.
 
 The reference runs these loops as ``lax.while_loop``/``lax.scan``
 inside one jitted program. Here they are Python loops on the host, and
@@ -317,3 +319,149 @@ def adaptive_rounds(edges: torch.Tensor, num_nodes: int,
     pi, work = cleanup_rounds(pi, flat, ops, work, true_edges=true_edges,
                               max_rounds=max_rounds)
     return pi, work
+
+
+# ---------------------------------------------------------------------------
+# Forest-recording hook (spanning forest as a by-product of hook rounds)
+# ---------------------------------------------------------------------------
+# Every hook round runs over a fully compressed π, so a scatter-min write
+# at ``hi`` strictly lowers a root's own label (π[hi] == hi before, lo <
+# hi after) and hi never reappears as a label. Each row is recorded at
+# most once over the run, each recorded edge merges two components that
+# were distinct when it was recorded, and the recorded rows are a
+# spanning forest: V - C edges, one unrecorded root (the component
+# minimum) per component. These compositions are separate from the plain
+# ones so that the plain paths stay as they are.
+
+_INT32_MAX = 2**31 - 1
+
+
+def empty_forest(num_nodes: int, device=None) -> torch.Tensor:
+    """int32 [V, 2] parent-edge table, all (-1, -1): row r will hold the
+    graph edge whose hook retired root r; rows still (-1, -1) at the end
+    are the component roots."""
+    return torch.full((num_nodes, 2), -1, dtype=torch.int32, device=device)
+
+
+def hook_edges_forest(pi: torch.Tensor, parents: torch.Tensor,
+                      edges: torch.Tensor, lift_steps: int = 0
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``hook_edges`` plus spanning-forest recording (same π update).
+
+    An edge wins row ``hi`` iff its scatter-min write landed
+    (``new_pi[hi] == lo``) and strictly lowered the root's label
+    (``new_pi[hi] < pi[hi]``: no self loops, duplicates or merged
+    endpoints). Ties between edges of the same (hi, lo) go to the lowest
+    edge index, by a second scatter-min over edge indices, so exactly one
+    edge is recorded per retired root.
+
+    A write that cannot lower its target (``lo >= pi[hi]``, and every
+    loser of the edge-index scatter) is a no-op. Such writes are sent as
+    the int32 maximum to a row picked by edge index instead, which
+    leaves every result as it was and spares the single-address storms
+    of the reference's layout: the edges of a merged component all
+    hitting its root, and the losers all hitting the reference's drop
+    row (``mode="drop"`` at index V). The parent rows of the losers go
+    to a sentinel row V of a [V + 1] buffer that is sliced off, so no
+    index past a buffer reaches a scatter.
+    """
+    n = pi.shape[0]
+    edges = edges.reshape(-1, 2)
+    u, v = edges[:, 0], edges[:, 1]
+    pu, pv = pi[u], pi[v]
+    for _ in range(lift_steps):
+        pu, pv = pi[pu], pi[pv]
+    hi = torch.maximum(pu, pv).long()
+    lo = torch.minimum(pu, pv)
+    eidx = torch.arange(edges.shape[0], dtype=torch.int32, device=pi.device)
+    spread = eidx.long() % max(n, 1)
+    before = pi[hi]
+    live = lo < before
+    new_pi = pi.scatter_reduce(0, torch.where(live, hi, spread),
+                               torch.where(live, lo, _INT32_MAX),
+                               reduce="amin", include_self=True)
+    at_hi = new_pi[hi]
+    won = (at_hi == lo) & (at_hi < before)
+    winner = torch.full((n,), _INT32_MAX, dtype=torch.int32,
+                        device=pi.device)
+    winner = winner.scatter_reduce(0, torch.where(won, hi, spread),
+                                   torch.where(won, eidx, _INT32_MAX),
+                                   reduce="amin")
+    rec = won & (winner[hi] == eidx)
+    buf = torch.cat([parents, parents.new_full((1, 2), -1)])
+    buf = buf.index_put((torch.where(rec, hi, n),), edges)
+    return new_pi, buf[:n]
+
+
+def forest_segment_scan(pi: torch.Tensor, parents: torch.Tensor,
+                        segments: torch.Tensor, work: WorkCounters,
+                        true_counts: torch.Tensor, lift_steps: int = 2,
+                        ) -> tuple[torch.Tensor, torch.Tensor, WorkCounters]:
+    """``segment_scan`` with the parent-edge table threaded through it
+    (torch ops only; billing as ``torch_round_ops``).
+
+    A segment's true edges are its first ``true_counts`` rows and the
+    rest are (0, 0) padding. Over a compressed π (every hook here
+    follows a compress, or starts from one) a (0, 0) row changes
+    neither π nor the forest, so only the true prefix is hooked: the
+    result is the reference's, without every padding row's write
+    landing on π[0]'s root."""
+    bill = 1 + lift_steps
+    for seg, cnt in zip(segments, true_counts.tolist()):
+        pi, parents = hook_edges_forest(pi, parents, seg[:cnt],
+                                        lift_steps=lift_steps)
+        work = work.add(hook_ops=cnt * bill, hook_rounds=1)
+        pi, work = compress(pi, work)
+    return pi, parents, work
+
+
+def forest_cleanup_rounds(pi: torch.Tensor, parents: torch.Tensor,
+                          edges: torch.Tensor, work: WorkCounters,
+                          true_edges: int | None = None,
+                          lift_steps: int = 2,
+                          max_rounds: int = MAX_ROUNDS,
+                          ) -> tuple[torch.Tensor, torch.Tensor, WorkCounters]:
+    """``cleanup_rounds`` with forest recording (the same short-circuit
+    on an already consistent edge set, the same true-edge billing).
+    Rows past ``true_edges`` are (0, 0) padding, consistent and no-ops
+    over a compressed π, so only the true prefix is checked and hooked
+    (see ``forest_segment_scan``)."""
+    if true_edges is None:
+        true_edges = edges.shape[0]
+    edges = edges[:true_edges]
+    bill = true_edges * (1 + lift_steps)
+    rounds = 0
+    done = edges_consistent(pi, edges)
+    while not done and rounds < max_rounds:
+        pi, parents = hook_edges_forest(pi, parents, edges,
+                                        lift_steps=lift_steps)
+        work = work.add(hook_ops=bill, hook_rounds=1)
+        pi, work = compress(pi, work)
+        done = edges_consistent(pi, edges)
+        rounds += 1
+    return pi, parents, work
+
+
+def forest_adaptive_rounds(edges: torch.Tensor, num_nodes: int,
+                           plan: SegmentationPlan, *,
+                           lift_steps: int = 2,
+                           true_edges: int | None = None,
+                           max_rounds: int = MAX_ROUNDS,
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      WorkCounters]:
+    """The Fig. 4 pipeline (segment scan, then cleanup) with the
+    spanning forest recorded along the way. Labels and counters equal
+    ``adaptive_rounds``'s."""
+    if true_edges is None:
+        true_edges = plan.num_edges
+    dev = edges.device
+    segments = pad_and_segment(edges, plan)
+    counts = segment_true_counts(true_edges, plan, device=dev)
+    pi0 = torch.arange(num_nodes, dtype=torch.int32, device=dev)
+    pi, parents, work = forest_segment_scan(
+        pi0, empty_forest(num_nodes, dev), segments,
+        WorkCounters.zeros(dev), counts, lift_steps=lift_steps)
+    pi, parents, work = forest_cleanup_rounds(
+        pi, parents, segments.reshape(-1, 2), work, true_edges=true_edges,
+        lift_steps=lift_steps, max_rounds=max_rounds)
+    return pi, parents, work

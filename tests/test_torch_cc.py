@@ -155,10 +155,23 @@ def test_table1_standins_reproduce_reference_counters(name):
 
 
 @pytest.mark.parametrize("method", ("auto", "sampled", "sampled_fused"))
-def test_unported_methods_raise(method):
-    _, n, edges = CASES[IDS.index("chain-17")]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcc.solve_static(edges, n, method, device="cpu")
+def test_unported_methods_raise(monkeypatch, method):
+    """The methods that route past the static engines (the method policy
+    and the two sampled engines): labels and counters equal the
+    reference's on chain-17 and a few other corpus graphs, each side's
+    default autotune cache cold."""
+    from repro.connectivity import policy as jpolicy
+    from repro_torch.connectivity import policy as tpolicy
+    monkeypatch.setattr(jpolicy, "_default_cache", jpolicy.AutotuneCache())
+    monkeypatch.setattr(tpolicy, "_default_cache", tpolicy.AutotuneCache())
+    for name in ("chain-17", "star-13", "two-cliques-bridge", "er-mid",
+                 "powerlaw-256"):
+        _, n, edges = CASES[IDS.index(name)]
+        want = jcc.solve_static(edges, n, method)
+        got = tcc.solve_static(edges, n, method, device="cpu")
+        np.testing.assert_array_equal(got.labels.numpy(),
+                                      np.asarray(want.labels), err_msg=name)
+        assert got.work.as_ints() == _work(want.work), name
 
 
 def test_unknown_methods_raise():

@@ -311,6 +311,121 @@ def test_solves_on_card_match_oracle_and_counters(dev, name):
 
 
 # ---------------------------------------------------------------------------
+# the front door: forest, sampled engines, Solver, queries
+# ---------------------------------------------------------------------------
+
+STANDINS = ("usa-osm", "euro-osm-karls", "soc-live-journal", "kron-logn21")
+
+
+def _on_both(name: str, dev):
+    host = table1_scaled(name, scale=0.002, seed=1)
+    return (DeviceGraph.from_host(host, device=dev),
+            DeviceGraph.from_host(host, device="cpu"))
+
+
+def _same_result(got, want):
+    """Tensor fields equal, counters equal; ``got`` on the card."""
+    assert torch.equal(got.labels.cpu(), want.labels)
+    assert got.work.as_ints() == want.work.as_ints()
+    if hasattr(want, "parents"):
+        assert torch.equal(got.parents.cpu(), want.parents)
+    if hasattr(want, "stats"):
+        assert {k: int(v) for k, v in got.stats.items()} == \
+            {k: int(v) for k, v in want.stats.items()}
+
+
+@pytest.mark.parametrize("name", STANDINS)
+def test_sampled_engines_on_card_match_cpu(dev, name):
+    """``sampled_fused`` runs its residue scan on the fused kernel (at
+    least one launch, also where the residue is empty), ``sampled`` on
+    torch ops; both equal the CPU port in labels, parents, counters and
+    stats."""
+    from repro_torch.core import sampled
+    g, gc = _on_both(name, dev)
+    for fused in (False, True):
+        cc_ops.KERNEL.launches = 0
+        got = sampled.solve_sampled(g, fused=fused)
+        torch.cuda.synchronize()
+        launches = cc_ops.KERNEL.launches
+        _same_result(got, sampled.solve_sampled(gc, fused=fused))
+        assert launches >= 1 if fused else launches == 0
+    want = connected_components_scipy(gc.edges.numpy(), gc.num_nodes)
+    np.testing.assert_array_equal(got.labels.cpu().numpy(), want)
+
+
+def test_giant_component_ties_on_card_go_to_the_first_label(dev):
+    """Two sampled components of equal size: the census argmax takes the
+    lower label on the card too."""
+    from repro_torch.core import sampled
+    edges = np.array([[5, 6], [6, 7], [0, 1], [1, 2], [3, 4]], np.int32)
+    for fused in (False, True):
+        got = sampled.solve_sampled(edges, 9, fused=fused, device=dev)
+        assert (int(got.stats["giant_label"]),
+                int(got.stats["giant_size"])) == (0, 3)
+
+
+@pytest.mark.parametrize("name", ("usa-osm", "kron-logn21"))
+def test_forest_and_queries_on_card_match_cpu(dev, name):
+    from repro_torch.connectivity import queries
+    g, gc = _on_both(name, dev)
+    for method in cc.FOREST_METHODS:
+        got = cc.solve_forest(g, method=method)
+        want = cc.solve_forest(gc, method=method)
+        _same_result(got, want)
+    labels, labels_c = got.labels, want.labels
+    stats = queries.spanning_forest_stats(labels, got.parents)
+    assert {k: int(v) for k, v in stats.items()} == {
+        k: int(v) for k, v in queries.spanning_forest_stats(
+            labels_c, want.parents).items()}
+    rng = np.random.default_rng(5)
+    n = gc.num_nodes
+    pairs = rng.integers(-n - 3, 2 * n, (4099, 2)).astype(np.int32)
+    for fn, args in ((queries.same_component, (pairs,)),
+                     (queries.component_size, (pairs[:, 0],)),
+                     (queries.component_census, ()),
+                     (queries.component_sizes, ()),
+                     (queries.count_components, ()),
+                     (queries.component_histogram, ())):
+        a = fn(labels, *args)
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), fn(labels_c, *args)), fn.__name__
+    big = torch.zeros(2**25 - 1, dtype=torch.int32, device=dev)
+    hist = queries.component_histogram(big).cpu()
+    assert hist[24] == 1 and int(hist.sum()) == 1
+
+
+@pytest.mark.parametrize("name", STANDINS)
+def test_solver_on_card_matches_cpu(dev, name):
+    """Plans and solves through the facade on the card equal the CPU
+    port's; ``backend="pallas"`` launches K2's snapshot body once per
+    hook round of ``adaptive``, and every backend on a CUDA graph stays
+    there."""
+    from repro_torch.api import Solver, available_backends
+    from repro_torch.connectivity.policy import AutotuneCache
+    g, gc = _on_both(name, dev)
+    s = Solver.open(g, policy_cache=AutotuneCache(None))
+    sc = Solver.open(gc, policy_cache=AutotuneCache(None))
+    assert s.plan().explain() == sc.plan().explain()
+    for backend in available_backends():
+        if backend == "labelprop" and name.endswith("osm"):
+            continue                # thousands of rounds on a road graph
+        hook_ops.KERNEL.launches = 0
+        got = s.solve(backend=backend)
+        torch.cuda.synchronize()
+        _same_result(got, sc.solve(backend=backend))
+        assert got.labels.device.type == "cuda", backend
+        assert s.last_plan.artifacts == sc.last_plan.artifacts, backend
+        if backend == "pallas":
+            rounds_ = sc.solve(backend="adaptive").work.hook_rounds
+            assert hook_ops.SNAPSHOT.launches == hook_ops.KERNEL.launches \
+                == int(rounds_)
+    _same_result(s.solve(), sc.solve())
+    assert s.num_components() == sc.num_components()
+    np.testing.assert_array_equal(s.component_histogram(),
+                                  sc.component_histogram())
+
+
+# ---------------------------------------------------------------------------
 # recsys kernels: embedding_bag and segment_reduce
 # ---------------------------------------------------------------------------
 

@@ -41,6 +41,9 @@ def test_import_loads_no_jax_and_no_reference():
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.models.transformer, repro_torch.serving.engine\n"
             "import repro_torch.configs.gemma2_2b, repro_torch.configs.qwen2_5_32b\n"
+            "import repro_torch.api, repro_torch.connectivity, repro_torch.obs\n"
+            "import repro_torch.core.sampled, repro_torch.core.batch\n"
+            "import repro_torch.connectivity.policy, repro_torch.api.solver\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
@@ -63,7 +66,14 @@ def test_no_source_imports_jax_or_reference():
 def test_exports():
     assert set(repro_torch.__all__) == {
         "CCResult", "DeviceGraph", "WorkCounters", "solve_hostloop",
-        "solve_pallas", "solve_static"}
+        "solve_pallas", "solve_static", "Solver", "solve", "ExecutionPlan",
+        "Backend", "Capabilities", "BACKENDS", "register_backend",
+        "get_backend", "available_backends", "capability_matrix"}
+    for name in repro_torch.__all__:
+        assert getattr(repro_torch, name) is not None
+    import repro_torch.api as api
+    assert repro_torch.Solver is api.Solver
+    assert repro_torch.BACKENDS is api.BACKENDS
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
@@ -77,6 +87,10 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         repro_torch.solve_pallas(edges, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.solve_hostloop(edges, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.solve(edges, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.Solver.open(edges, 4)
     g = tdev.DeviceGraph.from_edges(edges, 4, device="cpu")
     assert g.device.type == "cpu"
     assert g.edges.dtype == torch.int32
