@@ -136,7 +136,38 @@ then the front door of the CC system (``repro_torch.api``), on phase
     ``torch.profiler``;
 15. parity constants: the four stand-ins at scale 0.002 give the
     reference's ``sampled`` / ``sampled_fused`` hook_ops, n_residue and
-    giant_size on the card.
+    giant_size on the card;
+
+then the dynamic engine (``Solver.insert`` / ``delete`` over
+``DynamicCC``), on phase 3's graphs:
+
+16. the reference benchmark's dynamic stream at delete:insert 0.05 on
+    usa-osm and kron-logn21 at scale 1.0: the edges permuted by
+    default_rng(0) in 6 insert rounds, after each k = max(1, round(0.05
+    |chunk|)) kills drawn by default_rng(1) from the live set (the
+    numpy ``DynamicConnectivityOracle``), one delete batch a round on
+    usa, micro-batches of max(64, ceil(k / 8)) on kron (the policy's
+    tree-edge ratio routes kron to the forest, not usa). Replayed
+    through ``Solver.open(num_nodes=n, delete_route=r)`` for
+    ``tombstone-delete`` and ``tombstone-delete-fused`` on both graphs
+    and ``tombstone-delete-forest`` on kron. Gates: every route's final
+    labels equal scipy over the survivors; after every tick, labels and
+    version equal the first route's, and the fused route's
+    WorkCounters equal the torch-op route's; the fused kernel's
+    launches over the fused stream (counts set to 0 just before) are at
+    least the ticks that retired an edge; on kron one all-non-tree
+    batch of 16 alive edges bills 0 hook_ops. Printed: ms per insert
+    and delete tick (CUDA events), then one more insert and delete tick
+    of the last batch's size: the host syncs of each
+    (``torch.cuda.set_sync_debug_mode("warn")``) and a delete tick's
+    device time by op (``torch.profiler``); the tombstone step's byte
+    bound; peak device memory; then K1 against its plain version on
+    each fused stream's last scoped scan (pi and sweeps equal), timed;
+17. parity constants: the same schedule at scale 0.002 on the four
+    stand-ins gives, on every route, the reference's end hook_ops,
+    delete-side hook_ops, num_edges_deleted, version and
+    ``delete_route_counts`` (computed with ``repro.api.Solver``), and
+    labels equal to scipy over the survivors.
 
 It prints informative lines, then one JSON line of per-kernel numbers,
 then, as its last line, ``{"ok": true, "device": {...}}``. Without a
@@ -1354,6 +1385,335 @@ def front_door_phases(torch, np, dev, rows: dict, card: str, graphs: dict,
     return out
 
 
+# the dynamic stream (phases 16-17): the reference benchmark's schedule
+# (benchmarks/run.py, ``dynamic``) at delete:insert 0.05
+DYN_RATIO = 0.05
+DYN_ROUNDS = 6
+DYN_MICRO = 64
+# table1_scaled(name, scale=0.002, seed=1) through repro.api.Solver on
+# that schedule, each route on a fresh in-memory autotune cache: (end
+# hook_ops, delete-side hook_ops, num_edges_deleted, version,
+# (nontree_shortcircuit, tree_scoped, rebuild)), the reference's
+DYNAMIC_PARITY = {
+    "usa-osm": {
+        "tombstone-delete": (2092149, 1525965, 3109, 12, (0, 0, 0)),
+        "tombstone-delete-fused": (2092149, 1525965, 3109, 12, (0, 0, 0)),
+    },
+    "euro-osm-karls": {
+        "tombstone-delete": (17093340, 12523440, 22613, 12, (0, 0, 0)),
+        "tombstone-delete-fused": (17093340, 12523440, 22613, 12, (0, 0, 0)),
+    },
+    "soc-live-journal": {
+        "tombstone-delete": (9733719, 9418323, 2885, 46, (0, 0, 0)),
+        "tombstone-delete-fused": (9733719, 9418323, 2885, 46, (0, 0, 0)),
+        "tombstone-delete-forest": (1370089, 968671, 2885, 46, (0, 48, 1)),
+    },
+    "kron-logn21": {
+        "tombstone-delete": (8772396, 8464170, 13524, 34, (0, 0, 0)),
+        "tombstone-delete-fused": (8772396, 8464170, 13524, 34, (0, 0, 0)),
+        "tombstone-delete-forest": (818169, 421875, 13524, 34, (1, 47, 1)),
+    },
+}
+
+
+def count_syncs(torch, fn) -> tuple:
+    """(``fn()``'s result, the synchronizing CUDA operations it made, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def event_ms(torch, fn) -> float:
+    """Device-timeline ms of one ``fn()`` (CUDA events; the host work
+    and read-backs inside ``fn`` are on that timeline too)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def dynamic_schedule(np, edges, n: int):
+    """The benchmark's schedule: the edges permuted by default_rng(0) in
+    ``DYN_ROUNDS`` insert chunks; after each, k = max(1, round(ratio *
+    chunk)) kills drawn by default_rng(1) from the live set, in one
+    batch, or in micro-batches of max(64, ceil(k / 8)) on a graph the
+    policy routes to the forest. Returns (rounds of (chunk, delete
+    batches), routed, the survivors)."""
+    from repro_torch.connectivity import policy
+    from repro_torch.core.unionfind import DynamicConnectivityOracle
+    order = np.random.default_rng(0).permutation(edges.shape[0])
+    routed = policy.extract_features(n, edges.shape[0]).tree_edge_ratio \
+        <= policy.FOREST_TREE_RATIO
+    rng = np.random.default_rng(1)
+    oracle = DynamicConnectivityOracle(n)
+    sched = []
+    for s in np.array_split(order, DYN_ROUNDS):
+        chunk = edges[s]
+        oracle.insert(chunk)
+        k = max(1, int(round(DYN_RATIO * chunk.shape[0])))
+        live = oracle.alive()
+        kills = live[rng.integers(0, live.shape[0], k)].astype(np.int32)
+        step = max(DYN_MICRO, -(-k // 8)) if routed else k
+        batches = [kills[lo:lo + step] for lo in range(0, k, step)]
+        for b in batches:
+            oracle.delete(b)
+        sched.append((chunk, batches))
+    return sched, routed, oracle.alive()
+
+
+def dynamic_routes(routed: bool) -> tuple:
+    from repro_torch.connectivity import policy
+    return (policy.DYNAMIC_DELETE, policy.DYNAMIC_DELETE_FUSED) + (
+        (policy.DYNAMIC_DELETE_FOREST,) if routed else ())
+
+
+def run_stream(torch, dev, n: int, sched, route: str, on_tick=None,
+               timed: bool = False):
+    """Replays the schedule through ``Solver.open(num_nodes=n,
+    delete_route=route)`` (a fresh in-memory autotune cache), as the
+    benchmark does: the forest route repairs its forest on the insert
+    side (``ensure_forest``). ``on_tick(kind, session)`` runs after
+    every insert and delete tick; with ``timed`` every tick is timed.
+    Returns (session, delete-side hook_ops, {"insert": [ms], "delete":
+    [ms]})."""
+    from repro_torch.api import Solver
+    from repro_torch.connectivity import policy
+    s = Solver.open(num_nodes=n, delete_route=route, device=dev,
+                    policy_cache=policy.AutotuneCache(None))
+    ms = {"insert": [], "delete": []}
+    del_ops = 0
+
+    def tick(kind, fn):
+        if timed:
+            ms[kind].append(event_ms(torch, fn))
+        else:
+            fn()
+        if on_tick is not None:
+            on_tick(kind, s)
+
+    for chunk, batches in sched:
+        def ins(chunk=chunk):
+            s.insert(chunk)
+            if route == policy.DYNAMIC_DELETE_FOREST:
+                s.state.ensure_forest()
+        tick("insert", ins)
+        for b in batches:
+            before = s.work["hook_ops"]
+            tick("delete", lambda b=b: s.delete(b))
+            del_ops += s.work["hook_ops"] - before
+    return s, del_ops, ms
+
+
+def dynamic_phases(torch, np, dev, rows: dict, card: str, graphs: dict) -> dict:
+    """Phases 16-17: the dynamic stream on phase 3's graphs at full
+    scale, then its parity constants at scale 0.002."""
+    from repro_torch.connectivity import policy
+    from repro_torch.core.unionfind import connected_components_scipy
+    from repro_torch.graphs.generators import table1_scaled
+    from repro_torch.kernels.cc_fused import ops as cc_ops, ref as cc_ref
+    from repro_torch.kernels.hook import ops as hook_ops
+    from repro_torch.kernels.multi_jump import ops as mj_ops
+
+    FUSED, FOREST = policy.DYNAMIC_DELETE_FUSED, policy.DYNAMIC_DELETE_FOREST
+    ks = {"cc_fused": cc_ops.KERNEL, "hook": hook_ops.KERNEL,
+          "multi_jump": mj_ops.KERNEL}
+    out = {}
+    # the last scoped scan of each fused stream (K1's inputs on the path),
+    # held against the plain version after the stream
+    scans = {}
+    kernel_scan = cc_ops.fused_segment_scan
+
+    def recording_scan(pi, segments, true_counts, **kw):
+        if segments.shape[0] > 1:
+            scans[current] = (pi, segments, true_counts)
+        return kernel_scan(pi, segments, true_counts, **kw)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # -- 16. the dynamic stream at full scale ---------------------------------
+    for name, g in graphs.items():
+        n = g.num_nodes
+        t0 = time.perf_counter()
+        sched, routed, survivors = dynamic_schedule(
+            np, g.edges[:g.true_edges].cpu().numpy(), n)
+        want = connected_components_scipy(survivors, n)
+        n_ticks = sum(len(b) for _, b in sched)
+        print(f"dynamic {name}: schedule {time.perf_counter() - t0:.1f} s, "
+              f"{DYN_ROUNDS} inserts, {n_ticks} delete ticks, forest "
+              f"routed {routed}")
+        res = {"routed": routed, "delete_ticks": n_ticks, "ms": {},
+               "syncs": {}, "device_ms": {}, "top_device_ops": {}}
+        # after every tick: the first route's labels and version, its
+        # counters (the fused route must equal the torch-op one)
+        ref_ticks = []
+        for route in dynamic_routes(routed):
+            state = {"tick": 0, "killed": 0, "deleted": 0}
+
+            def on_tick(kind, s, route=route, state=state):
+                i = state["tick"]
+                w, labels, version = s.work, s.labels, s.version
+                if not i < len(ref_ticks):
+                    ref_ticks.append((w, labels.clone(), version))
+                else:
+                    rw, rl, rv = ref_ticks[i]
+                    check(torch.equal(labels, rl) and version == rv,
+                          f"{name} {route} tick {i}: labels or version "
+                          "differ from the first route's")
+                    if route == FUSED:
+                        check(w == rw, f"{name} fused tick {i} counters "
+                                       f"{w} != torch-op scoped {rw}")
+                d = s.state.num_edges_deleted
+                state["killed"] += kind == "delete" and d > state["deleted"]
+                state["deleted"] = d
+                state["tick"] += 1
+
+            current = name
+            cc_ops.fused_segment_scan = recording_scan
+            for k in ks.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            try:
+                s, del_ops, ms = run_stream(torch, dev, n, sched, route,
+                                            on_tick=on_tick, timed=True)
+                torch.cuda.synchronize()
+            finally:
+                cc_ops.fused_segment_scan = kernel_scan
+            launches = {k: kern.launches for k, kern in ks.items()}
+            wall = time.perf_counter() - t0
+            got = s.labels.cpu().numpy()
+            check(np.array_equal(got, want),
+                  f"{name} {route}: labels differ from scipy over the "
+                  "survivors")
+            if route == FUSED:
+                check(launches["cc_fused"] >= state["killed"] > 0,
+                      f"{name} fused stream: cc_fused launched "
+                      f"{launches['cc_fused']} times, {state['killed']} "
+                      "ticks retired an edge")
+                rows["cc_fused"].setdefault("launches_dynamic", {})[
+                    name] = launches["cc_fused"]
+            res["ms"][route] = {
+                "wall_s": wall, "insert_ms": ms["insert"],
+                "delete_ms_median": statistics.median(ms["delete"]),
+                "delete_ms_total": sum(ms["delete"]),
+                "delete_hook_ops": del_ops, "work": s.work,
+                "version": s.version,
+                "num_edges_deleted": s.state.num_edges_deleted,
+                "routes": s.state.delete_route_counts(flush_obs=False),
+                "launches": launches}
+            print(f"dynamic {name} {route} ({card}): {wall:.1f} s; insert "
+                  f"ms {[round(t, 2) for t in ms['insert']]}; delete ms "
+                  f"median {res['ms'][route]['delete_ms_median']:.2f} total "
+                  f"{res['ms'][route]['delete_ms_total']:.1f}; "
+                  f"{res['ms'][route]['routes']}; launches {launches}")
+            if route == FOREST:
+                # one all-non-tree batch of 16 alive non-forest edges bills
+                # no hook work (the short circuit)
+                st = s.state
+                st.ensure_forest()
+                parents = st.forest[0].cpu().numpy()
+                tree = parents[parents[:, 0] >= 0].astype(np.int64)
+                tkeys = np.minimum(tree[:, 0], tree[:, 1]) << 32 | \
+                    np.maximum(tree[:, 0], tree[:, 1])
+                sample = survivors[np.random.default_rng(2).integers(
+                    0, survivors.shape[0], 4096)]
+                skeys = np.minimum(sample[:, 0], sample[:, 1]) << 32 | \
+                    np.maximum(sample[:, 0], sample[:, 1])
+                non_tree = sample[~np.isin(skeys, tkeys)][:16]
+                check(non_tree.shape[0] == 16, f"{name}: 16 non-tree edges")
+                before = s.work["hook_ops"]
+                s.delete(non_tree)
+                check(s.work["hook_ops"] == before,
+                      f"{name}: an all-non-tree batch moved hook_ops")
+                print(f"dynamic {name} forest: an all-non-tree batch of 16 "
+                      "billed 0 hook_ops")
+            # one more insert and delete tick of the last batch's size:
+            # host syncs of each, then a delete tick's device time by op
+            extra = sched[-1][1][-1]
+            _, res["syncs"][f"{route} insert"] = count_syncs(
+                torch, lambda: s.insert(extra))
+            _, res["syncs"][f"{route} delete"] = count_syncs(
+                torch, lambda: s.delete(extra))
+            s.insert(extra)
+            per_kernel, total = device_kernels(torch, lambda: s.delete(extra))
+            res["device_ms"][route] = total
+            res["top_device_ops"][route] = dict(list(per_kernel.items())[:8])
+            print(f"profile {name} {route} delete tick ({card}): device "
+                  f"{total:.3f} ms; top {res['top_device_ops'][route]}; "
+                  f"syncs insert {res['syncs'][route + ' insert']} delete "
+                  f"{res['syncs'][route + ' delete']}")
+            if route == FUSED:
+                rows["cc_fused"].setdefault("main_path_device_ms", {})[
+                    f"{name} dynamic fused delete tick"] = kernel_share(
+                        per_kernel, "cc_fused_kernel")
+            # the tombstone step reads the log's edges and alive mask once
+            res["log_capacity"] = s.state.log.capacity
+            res["tombstone_bound_ms"] = bound_ms(9 * s.state.log.capacity)
+            del s
+            torch.cuda.empty_cache()
+        del ref_ticks
+        out[f"dynamic {name}"] = res
+    print(f"dynamic peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # K1 against its plain version on each fused stream's last scoped scan
+    for name, (pi, segs, counts) in scans.items():
+        got = cc_ops.fused_segment_scan(pi, segs, counts)
+        want = cc_ref.ref_segment_scan(pi, segs, counts)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        check(err == 0, f"cc_fused differs from its plain version on "
+                        f"{name}'s last scoped scan")
+        sweeps = int(got[1].sum())
+        n_edges = segs.shape[0] * segs.shape[1]
+        entry = dict(
+            shape=f"{name} last scoped scan of the fused stream: "
+                  f"V={pi.shape[0]}, S={segs.shape[0]}x{segs.shape[1]}, "
+                  f"{int(counts.sum())} scoped edges, {sweeps} sweeps",
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: cc_ops.fused_segment_scan(
+                pi, segs, counts)),
+            plain_ms=time_ms(torch, lambda: cc_ref.ref_segment_scan(
+                pi, segs, counts), reps=1),
+            bound_ms=bound_ms(8 * int(counts.sum()) + 8 * pi.shape[0]
+                              * (sweeps + 1)))
+        rows["cc_fused"].setdefault("dynamic_scan", {})[name] = entry
+        print(f"cc_fused {name} scoped scan ({card}): {entry}")
+    scans.clear()
+    out["dynamic_s"] = time.perf_counter() - t_phase
+    print(f"dynamic: {out['dynamic_s']:.1f} s")
+
+    # -- 17. parity constants at scale 0.002 ---------------------------------
+    t_phase = time.perf_counter()
+    for name, consts in DYNAMIC_PARITY.items():
+        host = table1_scaled(name, scale=0.002, seed=1)
+        n = host.num_nodes
+        sched, routed, survivors = dynamic_schedule(np, host.edges, n)
+        check(dynamic_routes(routed) == tuple(consts),
+              f"{name} @0.002: routes {dynamic_routes(routed)}")
+        want = connected_components_scipy(survivors, n)
+        for route, c in consts.items():
+            s, del_ops, _ = run_stream(torch, dev, n, sched, route)
+            got = (s.work["hook_ops"], del_ops, s.state.num_edges_deleted,
+                   s.version, tuple(s.state.delete_route_counts(
+                       flush_obs=False).values()))
+            check(got == c, f"{name} @0.002 {route}: {got} != {c}")
+            check(np.array_equal(s.labels.cpu().numpy(), want),
+                  f"{name} @0.002 {route}: labels differ from scipy")
+        print(f"parity {name} @0.002: {dict(consts)} reproduced")
+    out["dynamic_parity_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     # the one torch.compile (phase 11's flex_attention yardstick) keeps
     # its caches in the checkout's build directory and compiles in-process
@@ -1757,6 +2117,9 @@ def main() -> int:
     # -- 14.-15. the front door ----------------------------------------------
     e2e.update(front_door_phases(torch, np, dev, rows, card, graphs,
                                  oracles))
+
+    # -- 16.-17. the dynamic stream ------------------------------------------
+    e2e.update(dynamic_phases(torch, np, dev, rows, card, graphs))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

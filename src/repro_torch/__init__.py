@@ -1,11 +1,12 @@
 """repro_torch — the PyTorch/CUDA port of ``repro``, slice by slice:
 
   * adaptive work-efficient connected components (the static solve
-    path, the spanning forest, the sampled engines, the queries and the
-    ``Solver`` front door with its method policy), with hand-written
-    Hopper kernels behind the ``pallas``, ``pallas_fused`` and
-    ``sampled_fused`` backends (``core``, ``graphs``, ``connectivity``,
-    ``api``, ``obs``);
+    path, the spanning forest, the sampled engines, the queries, the
+    incremental and fully-dynamic engines behind ``Solver.insert`` /
+    ``delete``, and the ``Solver`` front door with its method policy),
+    with hand-written Hopper kernels behind the ``pallas``,
+    ``pallas_fused`` and ``sampled_fused`` backends and the fused scoped
+    delete (``core``, ``graphs``, ``connectivity``, ``api``, ``obs``);
   * the recsys serving path: DCN-v2 ``serve`` and ``retrieval`` cells
     (``launch.steps.build_cell``, ``models.recsys``, ``configs``,
     ``data.pipeline``), with the embedding-bag and segment-reduce

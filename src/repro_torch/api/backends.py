@@ -10,8 +10,11 @@ On a CUDA graph, ``pallas_fused`` and ``sampled_fused`` run the fused
 segment-scan kernel and ``pallas`` the hook and multi_jump kernels; a
 kernel that does not build or launch raises.
 
+The streaming engines ``incremental`` and ``dynamic`` also give the
+``Solver`` its live state (``make_state``).
+
 Not registered yet: ``batched`` (ROADMAP.md queue A, item A8),
-``incremental`` and ``dynamic`` (A6), ``distributed`` (A10).
+``distributed`` (A10).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from repro_torch.api.plan import ExecutionPlan
 from repro_torch.api.registry import Capabilities, register_backend
 from repro_torch.core import cc as cc_mod
 from repro_torch.core.cc import CCResult
+from repro_torch.core.incremental import DynamicCC, IncrementalCC
 from repro_torch.core.rounds import WorkCounters
 
 __all__ = []            # nothing public; importing registers everything
@@ -125,3 +129,50 @@ def _hostloop(plan: ExecutionPlan) -> CCResult:
         hook_rounds=stats["hook_rounds"], jump_sweeps=stats["jump_sweeps"],
         sync_rounds=stats["sync_rounds"])
     return CCResult(torch.from_numpy(labels).to(g.device), work)
+
+
+# ---------------------------------------------------------------------------
+# Streaming engines (live state via make_state)
+# ---------------------------------------------------------------------------
+
+def _run_streaming(backend, plan: ExecutionPlan) -> CCResult:
+    """One-shot run of a streaming engine: absorb the plan's graph into
+    fresh state on its device."""
+    state = backend.make_state(plan.num_nodes, lift_steps=plan.lift_steps,
+                               device=plan.graph.device)
+    state.insert_graph(plan.graph)
+    return CCResult(state.labels,
+                    WorkCounters.zeros(state.device).add(**state.work))
+
+
+@register_backend("incremental",
+                  Capabilities(static=True, streaming=True,
+                               bit_exact_counters=True))
+class _Incremental:
+    """Insert-only streaming engine."""
+
+    def make_state(self, num_nodes: int, *, lift_steps: int = 2,
+                   scan_method: str | None = None,
+                   device=None) -> IncrementalCC:
+        return IncrementalCC(num_nodes, lift_steps=lift_steps, device=device)
+
+    def run(self, plan: ExecutionPlan) -> CCResult:
+        return _run_streaming(self, plan)
+
+
+@register_backend("dynamic",
+                  Capabilities(static=True, streaming=True, deletions=True,
+                               bit_exact_counters=True,
+                               maintained_forest=True))
+class _Dynamic:
+    """Fully-dynamic engine: tombstone log + scoped recompute.
+    ``Solver`` sessions get their live state here."""
+
+    def make_state(self, num_nodes: int, *, lift_steps: int = 2,
+                   scan_method: str | None = None,
+                   device=None) -> DynamicCC:
+        return DynamicCC(num_nodes, lift_steps=lift_steps,
+                         scan_method=scan_method or "jnp", device=device)
+
+    def run(self, plan: ExecutionPlan) -> CCResult:
+        return _run_streaming(self, plan)

@@ -7,7 +7,10 @@ Every execution mode registers here under one contract:
     takes (static / batched / streaming / deletions / sharded) and
     whether its ``WorkCounters`` are exact true-work counters;
   * a ``run(plan) -> CCResult`` entry point consuming an
-    ``ExecutionPlan`` (``repro_torch.api.plan``).
+    ``ExecutionPlan`` (``repro_torch.api.plan``);
+  * optionally a ``make_state(num_nodes, ...)`` factory for streaming
+    backends: the ``Solver`` session asks the registry for its live
+    state instead of naming an engine class.
 
 Adding a backend is one decorator::
 
@@ -87,15 +90,21 @@ BACKENDS: Dict[str, Backend] = {}
 
 
 def register_backend(name: str, capabilities: Capabilities):
-    """Function decorator registering a ``run(plan)`` function as an
-    execution backend. (The reference also registers classes with a
-    ``make_state`` factory for its streaming engines; they come with
-    those engines, ROADMAP.md queue A, item A6.)"""
-    def deco(fn):
+    """Class or function decorator registering an execution backend: a
+    class exposing ``run(self, plan)`` (instantiated once, with
+    ``name`` and ``capabilities`` attached; a ``make_state`` method
+    marks a streaming backend) or a bare ``run(plan)`` function."""
+    def deco(obj):
         if name in BACKENDS:
             raise ValueError(f"backend {name!r} already registered")
-        BACKENDS[name] = _FunctionBackend(name, capabilities, fn)
-        return fn
+        if isinstance(obj, type):
+            backend = obj()
+            backend.name = name
+            backend.capabilities = capabilities
+        else:
+            backend = _FunctionBackend(name, capabilities, obj)
+        BACKENDS[name] = backend
+        return obj
     return deco
 
 

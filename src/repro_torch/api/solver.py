@@ -1,12 +1,19 @@
-"""Solver: the one front door of the port (``repro.api.solver``, its
-static half).
+"""Solver: the one front door of the port (``repro.api.solver``).
 
 ``Solver.open(graph_or_edges, **opts)`` returns a session that handles:
 
   * **static solve**: ``solve()`` routes through the adaptive policy
     (``method="auto"``: autotune cache, then the paper's heuristic) or
     any forced method or backend, dispatching through ``BACKENDS``;
-  * **the spanning forest**: ``spanning_forest()``, cached per method;
+  * **streaming mutation**: ``insert()`` / ``delete()`` promote the
+    session to the fully-dynamic engine and route every batch through
+    ``policy.select_for`` (a small insert is absorbed, a bulk one
+    rebuilds through a static engine and is adopted; a small delete
+    tombstones and recomputes the affected components, on torch ops,
+    the fused kernel or the maintained forest, a bulk drop rebuilds
+    over the survivors);
+  * **the spanning forest**: ``spanning_forest()``, cached per method
+    and label version;
   * **queries**: every ``connectivity.queries`` lookup, answered from
     the session's canonical labels, query batches padded to power-of-two
     row counts;
@@ -18,8 +25,7 @@ static half).
 One-shot: ``repro_torch.api.solve(graph, ...) -> CCResult``.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md queue A item: ``insert`` / ``delete`` and the metrics of the
-dynamic engine (A6), ``solve_batch`` (A8), ``mesh=`` sessions (A10).
+ROADMAP.md queue A item: ``solve_batch`` (A8), ``mesh=`` sessions (A10).
 
 The session lives on one device: a host graph goes to ``device`` (CUDA
 when None; with no CUDA it raises), a ``DeviceGraph`` or tensor stays
@@ -37,7 +43,7 @@ from repro_torch.core.batch import bucket_shape, pad_rows_pow2
 from repro_torch.core.cc import ALL_METHODS, CCResult
 from repro_torch.core.segmentation import plan_segmentation
 from repro_torch.graphs.device import (DeviceGraph, as_device_graph,
-                                       resolve_device)
+                                       resolve_device, validate_edge_bounds)
 from repro_torch.obs import trace as obs
 
 # method spellings a plan accepts beyond "auto" (each is a backend name)
@@ -59,6 +65,8 @@ class Solver:
     def __init__(self, graph: DeviceGraph | None, num_nodes: int, *,
                  lift_steps: int = 2, num_segments: int | None = None,
                  policy_cache: policy.AutotuneCache | None = None,
+                 scan_method: str | None = None,
+                 delete_route: str | None = None,
                  name: str = "solver", device=None):
         self._graph = graph            # the opened graph (None: empty)
         self._device = graph.device if graph is not None \
@@ -67,13 +75,26 @@ class Solver:
         self.lift_steps = lift_steps
         self.num_segments = num_segments
         self.policy_cache = policy_cache
+        self._scan_method = scan_method   # force the scoped-scan backend
+        if delete_route is not None \
+                and delete_route not in policy.DELETE_METHODS:
+            raise ValueError(f"unknown delete_route {delete_route!r}; "
+                             f"choose from {policy.DELETE_METHODS} or "
+                             "None (policy-routed)")
+        self._delete_route = delete_route  # force the delete-side route
         self.name = name
+        self._dyn = None               # live dynamic state (lazy)
         self._labels = None            # cached static-solve labels
-        self._forest: dict = {}        # method -> ForestResult
+        # (method, ForestResult, label version at build): kept while the
+        # version is unchanged (an absorb that merged nothing leaves the
+        # partition, and so the forest, as it was)
+        self._forest = None
         self._empty = None             # cached empty DeviceGraph
         self.last_method: str | None = None
         self.last_plan: ExecutionPlan | None = None
-        self.stats = {"solves": 0}
+        self.stats = {"solves": 0, "inserts": 0, "deletes": 0,
+                      "absorbs": 0, "scoped_deletes": 0,
+                      "forest_deletes": 0, "rebuilds": 0}
 
     # -- session lifecycle ---------------------------------------------------
 
@@ -81,6 +102,8 @@ class Solver:
     def open(cls, graph=None, num_nodes: int | None = None, *,
              lift_steps: int = 2, num_segments: int | None = None,
              mesh=None, policy_cache: policy.AutotuneCache | None = None,
+             scan_method: str | None = None,
+             delete_route: str | None = None,
              name: str = "solver", device=None) -> "Solver":
         """Open a session.
 
@@ -94,6 +117,11 @@ class Solver:
           mesh: not ported yet (raises).
           policy_cache: autotune cache for ``method="auto"`` routing
             (None: the process-wide default cache).
+          scan_method: force the dynamic engine's scoped-scan backend
+            (``"jnp"`` | ``"pallas_fused"``; None: policy-routed).
+          delete_route: force the delete-side route (a
+            ``policy.DELETE_METHODS`` entry; None: policy-routed by the
+            delete-rate and tree-edge-ratio features).
           name: label for introspection.
           device: where host data goes (CUDA when None).
         """
@@ -109,12 +137,16 @@ class Solver:
                                 num_segments=num_segments, device=device)
             n = g.num_nodes
         return cls(g, n, lift_steps=lift_steps, num_segments=num_segments,
-                   policy_cache=policy_cache, name=name, device=device)
+                   policy_cache=policy_cache, scan_method=scan_method,
+                   delete_route=delete_route, name=name, device=device)
 
     def graph(self) -> DeviceGraph:
-        """The session's edge set as a DeviceGraph (an empty one for an
-        edgeless session)."""
-        if self._graph is not None:
+        """The current edge set as a DeviceGraph: the dynamic log's
+        surviving (compacted) view once the session has mutated, else
+        the opened graph (an empty one for an edgeless session)."""
+        if self._dyn is not None and self._dyn.log.rows > 0:
+            return self._dyn.graph()
+        if self._dyn is None and self._graph is not None:
             return self._graph
         if self._empty is None:
             self._empty = DeviceGraph.from_edges(
@@ -124,7 +156,11 @@ class Solver:
 
     @property
     def num_edges(self) -> int:
-        """The host-known true edge count (no sync)."""
+        """Host-known edge count (no sync): the inserted total of a
+        mutated session (an upper bound under churn: the policy's size
+        feature), else the opened graph's true count."""
+        if self._dyn is not None:
+            return self._dyn.num_edges_inserted
         return self._graph.num_edges if self._graph is not None else 0
 
     # -- planning ------------------------------------------------------------
@@ -215,8 +251,11 @@ class Solver:
 
         ``method=None`` asks the policy and falls back to ``adaptive``
         when the chosen backend records no forest; forcing a method that
-        records none raises. The result is cached per method (a static
-        session's edge set never changes)."""
+        records none raises. The result is cached on (method, label
+        version): an ``insert()`` that merged nothing leaves the
+        partition, and so the cached forest, valid. ``delete()`` always
+        drops it (a deleted tree edge with a surviving replacement
+        leaves the version as it was but kills a cached forest edge)."""
         from repro_torch.core import cc as cc_mod
         if method is None:
             chosen, _ = policy.select_static_explained(
@@ -225,57 +264,192 @@ class Solver:
                 cache=self.policy_cache)
             method = chosen if chosen in cc_mod.FOREST_METHODS \
                 else "adaptive"
-        if method not in self._forest:
-            with obs.span("solver.spanning_forest", tenant=self.name,
-                          method=method):
-                self._forest[method] = cc_mod.solve_forest(
-                    self.graph(), method=method,
-                    num_segments=self.num_segments,
-                    lift_steps=self.lift_steps)
-        return self._forest[method]
+        if self._forest is not None and self._forest[0] == method \
+                and self._forest[2] == self.version:
+            return self._forest[1]
+        with obs.span("solver.spanning_forest", tenant=self.name,
+                      method=method):
+            res = cc_mod.solve_forest(self.graph(), method=method,
+                                      num_segments=self.num_segments,
+                                      lift_steps=self.lift_steps)
+        self._forest = (method, res, self.version)
+        return res
 
     @classmethod
     def solve_batch(cls, graphs, **kw):
         raise _not_ported("Solver.solve_batch", "A8")
 
-    # -- streaming mutation (not ported) -------------------------------------
+    # -- streaming mutation (policy-routed) ---------------------------------
 
-    def insert(self, edges):
-        raise _not_ported("Solver.insert", "A6")
+    def _coerce(self, edges) -> DeviceGraph:
+        """Host arrays are validated and copied to the session's device;
+        DeviceGraphs pass through (the caller owns their bounds)."""
+        if isinstance(edges, DeviceGraph):
+            if edges.num_nodes != self.num_nodes:
+                raise ValueError(f"delta num_nodes {edges.num_nodes} != "
+                                 f"{self.num_nodes}")
+            return edges
+        arr = np.asarray(edges, np.int32).reshape(-1, 2)
+        validate_edge_bounds(arr, self.num_nodes)
+        return DeviceGraph.from_edges(arr, self.num_nodes, name=self.name,
+                                      device=self._device)
 
-    def delete(self, edges):
-        raise _not_ported("Solver.delete", "A6")
+    @property
+    def state(self):
+        """The live dynamic engine (``DynamicCC``), made on first use by
+        the ``dynamic`` backend's ``make_state``; a session opened with
+        edges routes them through the policy as its first (bulk)
+        insert."""
+        return self._ensure_dyn()
+
+    def _ensure_dyn(self):
+        if self._dyn is None:
+            self._dyn = get_backend("dynamic").make_state(
+                self.num_nodes, lift_steps=self.lift_steps,
+                scan_method=self._scan_method, device=self._device)
+            if obs.enabled():
+                # tracing on: carry the device Metrics through every
+                # mutation (read only at metrics_summary())
+                self._dyn.enable_metrics()
+            seed, self._graph = self._graph, None
+            if seed is not None and seed.num_edges:
+                # the opened graph is the session's first (bulk) insert,
+                # counted as one: inserts == absorbs + insert rebuilds
+                self.stats["inserts"] += 1
+                self._route_insert(seed)
+        return self._dyn
+
+    def _rebuild(self, method: str) -> CCResult:
+        """Static rebuild over the current (staged) edge set through the
+        policy-chosen backend: the bulk-mutation route."""
+        plan = self.plan(method)
+        plan.reason = "policy"
+        self.last_plan = plan
+        return plan.run()
+
+    def _route_insert(self, delta: DeviceGraph) -> None:
+        dyn = self._dyn
+        method = policy.select_for(self.num_nodes, self.num_edges, delta,
+                                   cache=self.policy_cache)
+        self.last_method = method
+        if method == policy.INCREMENTAL_ABSORB:
+            dyn.insert_graph(delta)
+            self.stats["absorbs"] += 1
+        else:
+            # bulk load: the accumulated set is mostly this batch, and the
+            # chosen static engine (segmentation and all) beats hooking a
+            # huge unsegmented delta through the absorb loop
+            dyn.stage(delta)
+            res = self._rebuild(method)
+            dyn.adopt(res.labels, work=res.work, num_edges=delta.num_edges)
+            self.stats["rebuilds"] += 1
+
+    def insert(self, edges) -> torch.Tensor:
+        """Insert an edge batch (DeviceGraph or host array); returns the
+        label version as a device scalar (``int(...)`` it to read it).
+        Routed by ``policy.select_for``: a small delta is absorbed, a
+        bulk load rebuilds through a static engine and is adopted."""
+        delta = self._coerce(edges)
+        self._ensure_dyn()
+        self.stats["inserts"] += 1
+        # the spanning-forest cache stays: it is keyed on the version
+        with obs.span("solver.insert", tenant=self.name,
+                      edges=delta.num_edges) as sp:
+            self._route_insert(delta)
+            sp.tag(route=self.last_method)
+        return self._dyn.version_device
+
+    def delete(self, edges) -> torch.Tensor:
+        """Delete an edge batch (each row retires every alive copy of
+        that undirected edge; absent rows are no-ops); returns the label
+        version as a device scalar. Routed by the delete-rate policy (or
+        ``delete_route``): a small batch tombstones and recomputes the
+        affected components (the version ticks iff one split), a bulk
+        drop rebuilds over the survivors."""
+        delta = self._coerce(edges)
+        dyn = self._ensure_dyn()
+        self.stats["deletes"] += 1
+        self._forest = None            # edge set changed: forest stale
+        with obs.span("solver.delete", tenant=self.name,
+                      edges=delta.num_edges) as sp:
+            method = self._delete_route if self._delete_route is not None \
+                else policy.select_for(self.num_nodes, self.num_edges,
+                                       delta, delete=True,
+                                       cache=self.policy_cache)
+            self.last_method = method
+            sp.tag(route=method)
+            if method == policy.DYNAMIC_DELETE_FOREST:
+                dyn.delete_graph_forest(delta)
+                self.stats["forest_deletes"] += 1
+                self.stats["scoped_deletes"] += 1
+            elif method in policy.DELETE_METHODS:
+                if self._scan_method is None:
+                    dyn.scan_method = "pallas_fused" \
+                        if method == policy.DYNAMIC_DELETE_FUSED else "jnp"
+                dyn.delete_graph(delta)
+                self.stats["scoped_deletes"] += 1
+            else:
+                obs.count("dynamic.deletes.rebuild")
+                dyn.tombstone_graph(delta)
+                res = self._rebuild(method)
+                dyn.adopt(res.labels, work=res.work)
+                self.stats["rebuilds"] += 1
+        return dyn.version_device
 
     def enable_metrics(self) -> None:
-        raise _not_ported("Solver.enable_metrics", "A6")
+        """Attach the device ``Metrics`` accumulators to the dynamic
+        engine (automatic when tracing was on before the first
+        mutation). Read only by ``metrics_summary()``."""
+        self._ensure_dyn().enable_metrics()
 
-    def metrics_summary(self):
-        raise _not_ported("Solver.metrics_summary", "A6")
+    @property
+    def metrics(self):
+        """The live device ``Metrics`` (None unless attached). Reading
+        never syncs."""
+        return self._dyn.metrics if self._dyn is not None else None
+
+    def metrics_summary(self) -> dict | None:
+        """The accumulators on the host (one explicit read back, through
+        ``queries.to_host``); None when no metrics are attached."""
+        m = self.metrics
+        if m is None:
+            return None
+        from repro_torch.obs import metrics as obs_metrics
+        return obs_metrics.flush(m)
 
     # -- state views ---------------------------------------------------------
 
     @property
     def labels(self) -> torch.Tensor:
-        """Canonical min-id labels of the edge set (on the device),
-        solved with ``method="auto"`` on first access, without touching
-        ``stats``, ``last_method`` or ``last_plan``."""
+        """Canonical min-id labels for the current edge set (on the
+        device). A mutated session reads the live dynamic state; a
+        static one solves with ``method="auto"`` on first access,
+        without touching ``stats``, ``last_method`` or ``last_plan``."""
+        if self._dyn is not None:
+            return self._dyn.labels
         if self._labels is None:
             self._labels = self._build_plan().run().labels
         return self._labels
 
     @property
     def version(self) -> int:
-        """Label version: 0 (a static session never mutates)."""
-        return 0
+        """Label version as a host int (syncs). Ticks exactly when a
+        mutation changed the partition (a merge or a split)."""
+        return self._dyn.version if self._dyn is not None else 0
 
     @property
     def version_device(self) -> torch.Tensor:
-        """Label version as a device scalar."""
+        """Label version as a device scalar (no sync)."""
+        if self._dyn is not None:
+            return self._dyn.version_device
         return torch.zeros((), dtype=torch.int32, device=self._device)
 
     @property
     def work(self) -> dict:
-        """Accumulated mutation work counters: zeros (no mutations)."""
+        """Accumulated mutation work counters (host ints; syncs), zeros
+        before the first mutation."""
+        if self._dyn is not None:
+            return self._dyn.work
         from repro_torch.core.rounds import WorkCounters
         return {k: 0 for k in WorkCounters._fields}
 
@@ -328,8 +502,9 @@ class Solver:
                 queries.component_histogram(self.labels))
 
     def __repr__(self) -> str:
+        mode = "dynamic" if self._dyn is not None else "static"
         return (f"Solver(name={self.name!r}, |V|={self.num_nodes}, "
-                f"|E|~{self.num_edges}, mode=static)")
+                f"|E|~{self.num_edges}, mode={mode})")
 
 
 def solve(graph, num_nodes: int | None = None, method: str = "auto", *,

@@ -6,9 +6,10 @@ port of ``repro.connectivity.policy``.
 
    * a small pending insert batch is an ``incremental-absorb``; a small
      pending delete batch a ``tombstone-delete`` route (the ``-forest``
-     one where most edges are not tree edges). These routes are returned
-     by name only: the engines behind them are not ported yet
-     (ROADMAP.md queue A, item A6);
+     one where most edges are not tree edges, the ``-fused`` one where
+     the autotune cache measured ``pallas_fused`` the winner). The
+     ``Solver``'s mutation path runs them on ``core.incremental``'s
+     ``DynamicCC``;
    * a skewed graph at scale goes to ``sampled``;
    * density < ``MIN_SEGMENT_DENSITY``: ``atomic_hook``;
    * density >= ``LABELPROP_DENSITY_FRAC`` * |V|: ``labelprop``;

@@ -181,7 +181,7 @@ def solve_static(
     if g.num_nodes <= 0:
         return CCResult(torch.zeros((0,), dtype=torch.int32, device=g.device),
                         WorkCounters.zeros(g.device))
-    if g.edges.shape[0] == 0 or g.true_edges == 0:
+    if g.is_empty:
         return CCResult(torch.arange(g.num_nodes, dtype=torch.int32,
                                      device=g.device),
                         WorkCounters.zeros(g.device))
@@ -277,7 +277,7 @@ def solve_forest(graph, num_nodes: int | None = None,
         return ForestResult(
             torch.zeros((0,), dtype=torch.int32, device=g.device),
             rounds.empty_forest(0, g.device), WorkCounters.zeros(g.device))
-    if g.edges.shape[0] == 0 or g.true_edges == 0:
+    if g.is_empty:
         return ForestResult(
             torch.arange(g.num_nodes, dtype=torch.int32, device=g.device),
             rounds.empty_forest(g.num_nodes, g.device),

@@ -3,9 +3,11 @@ torch tensors.
 
 Deterministic Hook (scatter-min with bounded root chase), Compress
 (Jacobi pointer doubling to a fixpoint), the work counters, the
-segment-scan / cleanup-loop composition of the paper's Fig. 4, and the
-same compositions with the spanning forest recorded as they hook. The
-id-recording forest rounds of the dynamic engine are not here yet.
+segment-scan / cleanup-loop composition of the paper's Fig. 4, the
+same compositions with the spanning forest recorded as they hook, and
+the dynamic engine's scoped recomputes: ``scoped_rounds`` (the plain
+scoped delete) and ``forest_scoped_rounds`` with the id-recording
+rounds beneath it (the tree-aware delete).
 
 The reference runs these loops as ``lax.while_loop``/``lax.scan``
 inside one jitted program. Here they are Python loops on the host, and
@@ -121,17 +123,25 @@ def jacobi_sweeps(pi: torch.Tensor, fuel: int) -> tuple[torch.Tensor, int]:
     return pi, sweeps
 
 
+def _sweep_bill(num_nodes: int, bill_nodes, sweeps: int):
+    """jump_ops for ``sweeps`` sweeps billed at ``bill_nodes`` (default
+    |V|) each: a tensor when ``bill_nodes`` is one, else an int."""
+    v = num_nodes if bill_nodes is None else bill_nodes
+    return v * sweeps
+
+
 def compress(pi: torch.Tensor, work: WorkCounters,
              count_syncs: bool = False,
-             bill_nodes: int | None = None,
+             bill_nodes: int | torch.Tensor | None = None,
              ) -> tuple[torch.Tensor, WorkCounters]:
     """Full Compress via pointer doubling under ``compress_fuel(V)``.
-    Each sweep bills ``bill_nodes`` (default |V|) jump_ops and one
-    jump_sweep; with ``count_syncs`` also one sync_round (the Soman
-    baseline checks convergence from the host after every sweep)."""
-    v = pi.shape[0] if bill_nodes is None else bill_nodes
+    Each sweep bills ``bill_nodes`` (default |V|; an int or an int32
+    0-d tensor) jump_ops and one jump_sweep; with ``count_syncs`` also
+    one sync_round (the Soman baseline checks convergence from the host
+    after every sweep)."""
     pi, sweeps = jacobi_sweeps(pi, compress_fuel(pi.shape[0]))
-    work = work.add(jump_ops=v * sweeps, jump_sweeps=sweeps,
+    work = work.add(jump_ops=_sweep_bill(pi.shape[0], bill_nodes, sweeps),
+                    jump_sweeps=sweeps,
                     sync_rounds=sweeps if count_syncs else 0)
     return pi, work
 
@@ -166,12 +176,16 @@ class RoundOps(NamedTuple):
                    tuple[torch.Tensor, WorkCounters]] | None = None
 
 
-def torch_round_ops(lift_steps: int = 2) -> RoundOps:
+def torch_round_ops(lift_steps: int = 2,
+                    bill_nodes: int | torch.Tensor | None = None
+                    ) -> RoundOps:
     """Plain torch ops (the default backend; the reference's
-    ``jnp_round_ops``)."""
+    ``jnp_round_ops``). ``bill_nodes`` (an int or an int32 0-d tensor)
+    replaces |V| as the jump_ops billed per compress sweep: the scoped
+    recompute bills its affected-vertex count."""
     return RoundOps(
         hook=lambda pi, e: hook_edges(pi, e, lift_steps=lift_steps),
-        compress=compress,
+        compress=lambda pi, w: compress(pi, w, bill_nodes=bill_nodes),
         bill_lift=1 + lift_steps,
     )
 
@@ -191,27 +205,32 @@ def pallas_round_ops(lift_steps: int, node_tile: int) -> RoundOps:
     )
 
 
-def fused_round_ops(lift_steps: int = 2) -> RoundOps:
+def fused_round_ops(lift_steps: int = 2,
+                    bill_nodes: int | torch.Tensor | None = None
+                    ) -> RoundOps:
     """Fused-kernel ops (backend ``pallas_fused``, ``kernels.cc_fused``):
     the whole segment scan in ONE kernel launch. Billing is bit-equal
     to the torch-ops backend: hook_ops on TRUE per-segment counts,
-    jump_sweeps from the kernel's per-segment sweep counts."""
+    jump_sweeps from the kernel's per-segment sweep counts, jump_ops
+    ``bill_nodes`` (default |V|) per sweep."""
     from repro_torch.kernels.cc_fused.ops import fused_segment_scan
     bill = 1 + lift_steps
 
     def scan(pi, segments, true_counts, work):
-        v = pi.shape[0]
+        v = pi.shape[0] if bill_nodes is None else bill_nodes
         pi, sweeps = fused_segment_scan(pi, segments, true_counts,
                                         lift_steps=lift_steps)
         total = sweeps.sum(dtype=torch.int32)
         return pi, work.add(
             hook_ops=true_counts.sum(dtype=torch.int32) * bill,
             hook_rounds=segments.shape[0],
-            jump_ops=total * wrap_int32(v), jump_sweeps=total)
+            jump_ops=total * (v if isinstance(v, torch.Tensor)
+                              else wrap_int32(v)),
+            jump_sweeps=total)
 
     return RoundOps(
         hook=lambda pi, e: hook_edges(pi, e, lift_steps=lift_steps),
-        compress=compress,
+        compress=lambda pi, w: compress(pi, w, bill_nodes=bill_nodes),
         bill_lift=bill,
         scan=scan,
     )
@@ -365,8 +384,16 @@ def hook_edges_forest(pi: torch.Tensor, parents: torch.Tensor,
     to a sentinel row V of a [V + 1] buffer that is sliced off, so no
     index past a buffer reaches a scatter.
     """
+    new_pi, hi, rec = _forest_hook(pi, edges.reshape(-1, 2), lift_steps)
+    return new_pi, _record_rows(parents, hi, rec, edges.reshape(-1, 2))
+
+
+def _forest_hook(pi: torch.Tensor, edges: torch.Tensor, lift_steps: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The hook of ``hook_edges_forest`` in the storm-free layout its
+    docstring sets out: returns (new π, ``hi`` int64 [E], ``rec`` bool
+    [E] marking the one winning row per retired root)."""
     n = pi.shape[0]
-    edges = edges.reshape(-1, 2)
     u, v = edges[:, 0], edges[:, 1]
     pu, pv = pi[u], pi[v]
     for _ in range(lift_steps):
@@ -387,10 +414,29 @@ def hook_edges_forest(pi: torch.Tensor, parents: torch.Tensor,
     winner = winner.scatter_reduce(0, torch.where(won, hi, spread),
                                    torch.where(won, eidx, _INT32_MAX),
                                    reduce="amin")
-    rec = won & (winner[hi] == eidx)
-    buf = torch.cat([parents, parents.new_full((1, 2), -1)])
-    buf = buf.index_put((torch.where(rec, hi, n),), edges)
-    return new_pi, buf[:n]
+    return new_pi, hi, won & (winner[hi] == eidx)
+
+
+def _record_rows(table: torch.Tensor, hi: torch.Tensor, rec: torch.Tensor,
+                 values: torch.Tensor) -> torch.Tensor:
+    """``table[hi[i]] = values[i]`` for the rows under ``rec``; the other
+    rows write to a sentinel row past the table, sliced off."""
+    buf = _with_sentinel(table)
+    _record_rows_(buf, hi, rec, values)
+    return buf[:table.shape[0]]
+
+
+def _with_sentinel(table: torch.Tensor) -> torch.Tensor:
+    """A copy of ``table`` with one more row: the sentinel row that
+    ``_record_rows_`` sends the losing rows to."""
+    return torch.cat([table, table.new_full((1,) + table.shape[1:], -1)])
+
+
+def _record_rows_(buf: torch.Tensor, hi: torch.Tensor, rec: torch.Tensor,
+                  values: torch.Tensor) -> None:
+    """In place on a sentinel-extended table: ``buf[hi[i]] = values[i]``
+    for the rows under ``rec``, the others to the last row."""
+    buf.index_put_((torch.where(rec, hi, buf.shape[0] - 1),), values)
 
 
 def forest_segment_scan(pi: torch.Tensor, parents: torch.Tensor,
@@ -465,3 +511,324 @@ def forest_adaptive_rounds(edges: torch.Tensor, num_nodes: int,
         pi, parents, segments.reshape(-1, 2), work, true_edges=true_edges,
         lift_steps=lift_steps, max_rounds=max_rounds)
     return pi, parents, work
+
+
+# ---------------------------------------------------------------------------
+# Id-recording forest rounds (the maintained forest of the dynamic engine)
+# ---------------------------------------------------------------------------
+# The same win rule as above, but each recorded row also keeps WHICH edge
+# won: an external id (the EdgeLog row) scattered beside the endpoints.
+# ``parent_eidx[r]`` is the log row of the edge at ``parents[r]`` (-1 for
+# roots), which lets a delete batch classify tree and non-tree hits with
+# one O(V) gather. Every composition here hooks over a compressed π, so a
+# (0, 0) row (id -1) is a no-op that can never win: rows known to be such
+# padding are left out, which changes no result.
+
+def empty_forest_idx(num_nodes: int, device=None) -> torch.Tensor:
+    """int32 [V] log-row table matching ``empty_forest``: all -1."""
+    return torch.full((num_nodes,), -1, dtype=torch.int32, device=device)
+
+
+def hook_edges_forest_ids(pi: torch.Tensor, parents: torch.Tensor,
+                          parent_eidx: torch.Tensor, edges: torch.Tensor,
+                          edge_ids: torch.Tensor, lift_steps: int = 0,
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """``hook_edges_forest`` plus external-id recording: the same π
+    update and the same tie-break (the lowest batch slot wins), and the
+    winning slot's ``edge_ids`` entry lands in ``parent_eidx`` under the
+    same rule, in the same storm-free layout."""
+    edges = edges.reshape(-1, 2)
+    new_pi, hi, rec = _forest_hook(pi, edges, lift_steps)
+    return (new_pi, _record_rows(parents, hi, rec, edges),
+            _record_rows(parent_eidx, hi, rec, edge_ids.reshape(-1)))
+
+
+def forest_cleanup_rounds_ids(pi: torch.Tensor, parents: torch.Tensor,
+                              parent_eidx: torch.Tensor,
+                              edges: torch.Tensor, edge_ids: torch.Tensor,
+                              work: WorkCounters,
+                              true_edges: int | torch.Tensor | None = None,
+                              lift_steps: int = 2,
+                              max_rounds: int = MAX_ROUNDS,
+                              bill_nodes: int | torch.Tensor | None = None,
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor, WorkCounters]:
+    """``forest_cleanup_rounds`` threading the log-row table. Unlike it,
+    every row is checked and hooked: callers may pass rows masked in
+    place, which are not a prefix. ``true_edges`` (an int or a 0-d
+    tensor) is what each round bills; ``bill_nodes`` replaces |V| in the
+    compress billing."""
+    if true_edges is None:
+        true_edges = edges.shape[0]
+    n = pi.shape[0]
+    rounds = 0
+    done = edges_consistent(pi, edges)
+    if done:
+        return pi, parents, parent_eidx, work
+    pbuf, ebuf = _with_sentinel(parents), _with_sentinel(parent_eidx)
+    sweeps = 0
+    while not done and rounds < max_rounds:
+        pi, hi, rec = _forest_hook(pi, edges, lift_steps)
+        _record_rows_(pbuf, hi, rec, edges)
+        _record_rows_(ebuf, hi, rec, edge_ids)
+        pi, k = jacobi_sweeps(pi, compress_fuel(n))
+        sweeps += k
+        done = edges_consistent(pi, edges)
+        rounds += 1
+    work = work.add(hook_ops=true_edges * (1 + lift_steps) * rounds,
+                    hook_rounds=rounds, jump_sweeps=sweeps,
+                    jump_ops=_sweep_bill(n, bill_nodes, sweeps))
+    return pi, pbuf[:n], ebuf[:n], work
+
+
+def forest_segment_scan_ids(pi: torch.Tensor, parents: torch.Tensor,
+                            parent_eidx: torch.Tensor,
+                            segments: torch.Tensor, seg_ids: torch.Tensor,
+                            work: WorkCounters, true_counts: torch.Tensor,
+                            lift_steps: int = 2,
+                            bill_nodes: int | torch.Tensor | None = None,
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, WorkCounters]:
+    """``forest_segment_scan`` threading the log-row table (the forest
+    rebuild over the surviving EdgeLog and the skeleton phase of the
+    tree-aware delete). A segment's true rows are its first
+    ``true_counts`` rows; only they are hooked (see above). The tables
+    are recorded in place into one sentinel-extended copy for the whole
+    scan, and the counters added once at its end (int32 addition wraps
+    the same in any order).
+
+    On CUDA, once a full segment has run eagerly, the full segments
+    replay as CUDA graphs (``_GraphedSegment``): the same ops, with the
+    host issuing a few replays a segment instead of some forty
+    launches."""
+    n = pi.shape[0]
+    fuel = compress_fuel(n)
+    pbuf, ebuf = _with_sentinel(parents), _with_sentinel(parent_eidx)
+    counts = true_counts.tolist()
+    sweeps = 0
+    step = None
+    for seg, ids, cnt in zip(segments, seg_ids, counts):
+        full = cnt == seg.shape[0]
+        if step is not None and full:
+            sweeps += step(seg, ids, fuel)
+            continue
+        if cnt:
+            pi, hi, rec = _forest_hook(pi, seg[:cnt], lift_steps)
+            _record_rows_(pbuf, hi, rec, seg[:cnt])
+            _record_rows_(ebuf, hi, rec, ids[:cnt])
+        pi, k = jacobi_sweeps(pi, fuel)
+        sweeps += k
+        if step is not None:
+            step.pi.copy_(pi)
+        elif full and pi.is_cuda:
+            step = _GraphedSegment(pi, pbuf, ebuf, cnt, lift_steps)
+        if step is not None:
+            pi = step.pi
+    work = work.add(hook_ops=sum(counts) * (1 + lift_steps),
+                    hook_rounds=len(counts), jump_sweeps=sweeps,
+                    jump_ops=_sweep_bill(n, bill_nodes, sweeps))
+    return pi, pbuf[:n], ebuf[:n], work
+
+
+class _GraphedSegment:
+    """One full segment of ``forest_segment_scan_ids`` as two CUDA
+    graphs over static buffers: the id-recording hook (into the scan's
+    tables) and one Jacobi sweep with its changed flag. A call copies
+    the segment in, replays the hook, then replays the sweep and reads
+    the flag back until nothing changes or ``fuel`` sweeps ran, exactly
+    as ``jacobi_sweeps`` counts. ``pi`` holds π between calls. Captured
+    by hand on a side stream, so no capture collects garbage or empties
+    the allocator's cache."""
+
+    def __init__(self, pi: torch.Tensor, pbuf: torch.Tensor,
+                 ebuf: torch.Tensor, rows: int, lift_steps: int):
+        dev = pi.device
+        self.pi = pi.clone()
+        self.edges = torch.zeros((rows, 2), dtype=torch.int32, device=dev)
+        self.ids = torch.zeros((rows,), dtype=torch.int32, device=dev)
+        self.changed = torch.zeros((), dtype=torch.bool, device=dev)
+
+        def hook():
+            new_pi, hi, rec = _forest_hook(self.pi, self.edges, lift_steps)
+            _record_rows_(pbuf, hi, rec, self.edges)
+            _record_rows_(ebuf, hi, rec, self.ids)
+            self.pi.copy_(new_pi)
+
+        def sweep():
+            nxt = self.pi[self.pi]
+            self.changed.copy_((nxt != self.pi).any())
+            self.pi.copy_(nxt)
+
+        self.hook, self.sweep = self._capture(hook), self._capture(sweep)
+
+    @staticmethod
+    def _capture(fn) -> "torch.cuda.CUDAGraph":
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            fn()
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        return graph
+
+    def __call__(self, seg: torch.Tensor, ids: torch.Tensor,
+                 fuel: int) -> int:
+        self.edges.copy_(seg)
+        self.ids.copy_(ids)
+        self.hook.replay()
+        sweeps = 0
+        while sweeps < fuel:
+            self.sweep.replay()
+            sweeps += 1
+            if not bool(self.changed):
+                break
+        return sweeps
+
+
+def forest_scan_rounds_ids(pi: torch.Tensor, parents: torch.Tensor,
+                           parent_eidx: torch.Tensor, packed: torch.Tensor,
+                           packed_ids: torch.Tensor, n_true: int,
+                           work: WorkCounters, *, lift_steps: int = 2,
+                           max_rounds: int = MAX_ROUNDS,
+                           bill_nodes: int | torch.Tensor | None = None,
+                           segment_size: int = 512,
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, WorkCounters]:
+    """The work-efficient drive of the id-recording hook over a packed
+    (true-prefix) edge list: one segment-scan pass in ``segment_size``
+    row segments of the stored rows (each true row billed once, a full
+    compress after each segment), then the fixpoint cleanup loop, which
+    after the scan usually short-circuits before billing anything."""
+    cap = packed.shape[0]
+    seg = min(segment_size, cap)
+    num_segments = -(-cap // seg) if cap else 0
+    starts = torch.arange(num_segments, dtype=torch.int32) * seg
+    counts = torch.clamp(n_true - starts, 0, seg)
+    segments = (packed[i * seg:(i + 1) * seg] for i in range(num_segments))
+    seg_ids = (packed_ids[i * seg:(i + 1) * seg]
+               for i in range(num_segments))
+    pi, parents, parent_eidx, work = forest_segment_scan_ids(
+        pi, parents, parent_eidx, segments, seg_ids, work, counts,
+        lift_steps=lift_steps, bill_nodes=bill_nodes)
+    return forest_cleanup_rounds_ids(
+        pi, parents, parent_eidx, packed[:n_true], packed_ids[:n_true], work,
+        true_edges=n_true, lift_steps=lift_steps, max_rounds=max_rounds,
+        bill_nodes=bill_nodes)
+
+
+def pack_edge_rows(edges: torch.Tensor, edge_ids: torch.Tensor,
+                   mask: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Pack the rows under ``mask`` to a dense prefix, in order; the tail
+    becomes (0, 0) rows with id -1. Returns ``(packed_edges, packed_ids,
+    true_count)``, the count a host int (the reference's is a device
+    scalar; the loops here read it anyway)."""
+    idx = mask.nonzero().squeeze(1)
+    n = idx.shape[0]
+    packed = torch.zeros_like(edges)
+    packed[:n] = edges[idx]
+    ids = torch.full_like(edge_ids, -1)
+    ids[:n] = edge_ids[idx]
+    return packed, ids, n
+
+
+def forest_scoped_rounds(pi: torch.Tensor, parents: torch.Tensor,
+                         parent_eidx: torch.Tensor, edges: torch.Tensor,
+                         edge_ids: torch.Tensor, edge_mask: torch.Tensor,
+                         forest_keep: torch.Tensor,
+                         vertex_mask: torch.Tensor, work: WorkCounters, *,
+                         max_rounds: int = MAX_ROUNDS,
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    WorkCounters]:
+    """Tree-aware scoped reconnection: relabel only the components that
+    lost a spanning-forest edge, in two phases billing O(V_aff +
+    crossing) rather than O(E_aff):
+
+    1. **skeleton**: hook + compress over the surviving forest edges of
+       the affected components (``forest_keep``), packed and scanned in
+       1024-row segments;
+    2. **replacement search**: only the alive scoped edges whose
+       endpoints still disagree after phase 1 (crossing edges) can
+       reconnect fragments; they are hooked to a fixpoint, recording
+       the replacement edges into the forest.
+
+    Affected vertices restart as self-roots with their forest rows
+    cleared; the others keep labels and forest rows. Both phases hook
+    unlifted (``lift_steps=0``), as the reference does.
+
+    The reference masks the crossing rows in place over the whole log;
+    here they are packed first (same order), which changes no result:
+    a masked (0, 0) row is a no-op that never wins."""
+    n_v = pi.shape[0]
+    dev = pi.device
+    bill_nodes = vertex_mask.sum(dtype=torch.int32)
+    pi0 = torch.where(vertex_mask,
+                      torch.arange(n_v, dtype=torch.int32, device=dev), pi)
+    parents0 = torch.where(vertex_mask[:, None], -1, parents)
+    eidx0 = torch.where(vertex_mask, -1, parent_eidx)
+
+    skel, skel_ids, n_skel = pack_edge_rows(parents, parent_eidx,
+                                            forest_keep)
+    pi1, parents1, eidx1, work = forest_scan_rounds_ids(
+        pi0, parents0, eidx0, skel, skel_ids, n_skel, work,
+        lift_steps=0, max_rounds=max_rounds, bill_nodes=bill_nodes,
+        segment_size=1024)
+
+    crossing = edge_mask & (pi1[edges[:, 0]] != pi1[edges[:, 1]])
+    c_edges, c_ids, n_cross = pack_edge_rows(edges, edge_ids, crossing)
+    return forest_cleanup_rounds_ids(
+        pi1, parents1, eidx1, c_edges[:n_cross], c_ids[:n_cross], work,
+        true_edges=n_cross, lift_steps=0, max_rounds=max_rounds,
+        bill_nodes=bill_nodes)
+
+
+# ---------------------------------------------------------------------------
+# Scoped recompute (the plain delete fallback)
+# ---------------------------------------------------------------------------
+
+def scoped_rounds(pi: torch.Tensor, edges: torch.Tensor,
+                  edge_mask: torch.Tensor, vertex_mask: torch.Tensor,
+                  plan: SegmentationPlan, ops: RoundOps,
+                  work: WorkCounters, max_rounds: int = MAX_ROUNDS,
+                  ) -> tuple[torch.Tensor, WorkCounters]:
+    """Scoped recompute: re-derive labels for ONLY the vertices under
+    ``vertex_mask`` from the edges under ``edge_mask``, leaving every
+    other label untouched (the delete fallback of the fully-dynamic
+    engine: ``vertex_mask`` marks the components a retired edge may
+    have split, ``edge_mask`` their surviving edges).
+
+    The masked edges are packed, in order, to a (0, 0)-padded prefix
+    and run through the Fig. 4 pipeline: the segment scan over ``plan``
+    (segments of the stored rows, billed on the packed count), then the
+    cleanup loop. Affected vertices restart as self-roots. Callers pass
+    ``ops`` built with ``bill_nodes`` = the affected-vertex count.
+
+    With fused ops the scan is one kernel launch over the padded
+    segments. With torch ops only each segment's true prefix is hooked,
+    and the cleanup covers the packed rows only: every hook here runs
+    over a compressed π, where a (0, 0) row is a no-op, so the result
+    and the billing are the reference's without the padding rows'
+    writes all landing on one address."""
+    n_v = pi.shape[0]
+    dev = pi.device
+    idx = edge_mask.nonzero().squeeze(1)
+    n_scoped = idx.shape[0]
+    packed = edges[idx]
+    pi0 = torch.where(vertex_mask,
+                      torch.arange(n_v, dtype=torch.int32, device=dev), pi)
+    counts = segment_true_counts(n_scoped, plan, device=dev)
+    if ops.scan is not None:
+        segments = pad_and_segment(packed, plan)
+        pi1, work = ops.scan(pi0, segments, counts, work)
+    else:
+        pi1, seg = pi0, plan.segment_size
+        for i, cnt in enumerate(counts.tolist()):
+            if cnt:
+                pi1 = ops.hook(pi1, packed[i * seg:i * seg + cnt])
+            work = work.add(hook_ops=cnt * ops.bill_lift, hook_rounds=1)
+            pi1, work = ops.compress(pi1, work)
+    return cleanup_rounds(pi1, packed, ops, work, true_edges=n_scoped,
+                          max_rounds=max_rounds)

@@ -161,7 +161,7 @@ def solve_sampled(graph, num_nodes: int | None = None, *,
         return SampledResult(torch.zeros((0,), dtype=torch.int32, device=dev),
                              rounds.empty_forest(0, dev),
                              WorkCounters.zeros(dev), _stats(dev, 0))
-    if g.edges.shape[0] == 0 or g.true_edges == 0:
+    if g.is_empty:
         return SampledResult(torch.arange(v, dtype=torch.int32, device=dev),
                              rounds.empty_forest(v, dev),
                              WorkCounters.zeros(dev), _stats(dev, 1))

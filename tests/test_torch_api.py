@@ -21,7 +21,7 @@ import repro_torch
 from repro_torch.connectivity import policy as tpolicy
 from repro_torch.core import cc as tcc
 
-NOT_PORTED = {"batched", "incremental", "dynamic", "distributed"}
+NOT_PORTED = {"batched", "distributed"}
 GRAPHS = [(name, n, e) for name, n, e in corpus()] + [
     (f"{name}@0.002", g.num_nodes, g.edges) for name, g in
     ((name, table1_scaled(name, scale=0.002, seed=1))
@@ -228,7 +228,13 @@ def test_session_state_of_a_static_session():
     (lambda s: repro_torch.Solver.open(s.graph(), mesh=object()), "A10"),
 ])
 def test_unported_session_features_raise(call, item):
+    """What is still to be ported raises, naming its ROADMAP.md item; the
+    A6 features (the mutation path and its metrics) run now."""
     s = repro_torch.Solver.open([[0, 1], [1, 2]], 4, device="cpu")
+    if item == "A6":
+        call(s)
+        assert s.state is not None and s.stats["inserts"] >= 1
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
         call(s)
 

@@ -803,3 +803,50 @@ def test_smoke_engine_on_card_matches_port_on_cpu(dev, mod):
         launches = fa_ops.KERNEL.launches - before
     assert launches == 5 * cfg.n_layers
     assert outs[1] == outs[0]
+
+
+# -- the dynamic engine (DynamicCC behind Solver.insert / delete) -------------
+
+def _dynamic_stream(device, route: str, n: int, edges: np.ndarray):
+    """A seeded insert / delete stream through ``Solver`` on ``route``:
+    per tick (labels, version, WorkCounters), and the session."""
+    from repro_torch.api import Solver
+    from repro_torch.connectivity import policy
+    rng = np.random.default_rng(1)
+    order = np.random.default_rng(0).permutation(edges.shape[0])
+    s = Solver.open(num_nodes=n, delete_route=route, device=device,
+                    policy_cache=policy.AutotuneCache(None))
+    ticks = []
+    for part in np.array_split(np.arange(order.shape[0]), 4):
+        s.insert(edges[order[part]])
+        ticks.append((s.labels.cpu(), s.version, s.work))
+        live = edges[order[:part[-1] + 1]]
+        for _ in range(3):
+            s.delete(live[rng.integers(0, live.shape[0], 40)])
+            ticks.append((s.labels.cpu(), s.version, s.work))
+    return ticks, s
+
+
+@pytest.mark.parametrize("route", ("tombstone-delete",
+                                   "tombstone-delete-fused",
+                                   "tombstone-delete-forest"))
+@pytest.mark.parametrize("name", ("usa-osm", "kron-logn21"))
+def test_dynamic_stream_on_card_matches_cpu(dev, name, route):
+    """The same stream on the card and on the CPU: labels, version and
+    all five counters equal after every tick; on the fused route the
+    kernel launched at least once."""
+    g = table1_scaled(name, scale=0.002, seed=1)
+    edges = np.asarray(g.edges, np.int32)
+    cc_ops.KERNEL.launches = 0
+    got, s = _dynamic_stream(dev, route, g.num_nodes, edges)
+    launches = cc_ops.KERNEL.launches
+    want, _ = _dynamic_stream("cpu", route, g.num_nodes, edges)
+    for i, ((gl, gv, gw), (wl, wv, ww)) in enumerate(zip(got, want)):
+        assert torch.equal(gl, wl), i
+        assert (gv, gw) == (wv, ww), i
+    if route == "tombstone-delete-fused":
+        assert launches >= 1
+    survivors = s.graph()
+    ref = connected_components_scipy(
+        survivors.edges[:survivors.true_edges].cpu().numpy(), g.num_nodes)
+    np.testing.assert_array_equal(s.labels.cpu().numpy(), ref)

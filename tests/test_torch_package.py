@@ -44,6 +44,7 @@ def test_import_loads_no_jax_and_no_reference():
             "import repro_torch.api, repro_torch.connectivity, repro_torch.obs\n"
             "import repro_torch.core.sampled, repro_torch.core.batch\n"
             "import repro_torch.connectivity.policy, repro_torch.api.solver\n"
+            "import repro_torch.core.incremental, repro_torch.obs.metrics\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
@@ -150,3 +151,17 @@ def test_format_and_oracles_match_reference():
     np.testing.assert_array_equal(tuf.connected_components_scipy(edges, 40),
                                   want)
     assert tuf.num_components(want) == juf.num_components(want)
+
+
+def test_dynamic_entry_points_refuse_cpu_fallback(monkeypatch):
+    from repro_torch.core import incremental
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: incremental.IncrementalCC(4),
+                 lambda: incremental.DynamicCC(4),
+                 lambda: tdev.EdgeLog(4),
+                 lambda: repro_torch.Solver.open(None, 4).insert([[0, 1]])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    s = incremental.DynamicCC(4, device="cpu")
+    s.insert([[0, 1]])
+    assert s.labels.device.type == s.log.device.type == "cpu"
