@@ -167,7 +167,45 @@ then the dynamic engine (``Solver.insert`` / ``delete`` over
     stand-ins gives, on every route, the reference's end hook_ops,
     delete-side hook_ops, num_edges_deleted, version and
     ``delete_route_counts`` (computed with ``repro.api.Solver``), and
-    labels equal to scipy over the survivors.
+    labels equal to scipy over the survivors;
+
+then the batched engine and the connectivity service:
+
+18. ``Solver.solve_batch`` on the reference benchmark's fleets
+    (``benchmarks/run.py``, ``batched``: molecules-64, mixed-48,
+    medium-16): labels equal scipy and the per-graph ``solve(method=
+    "adaptive")``, per-graph WorkCounters equal ``BATCHED_PARITY``
+    (computed with ``repro.api.Solver.solve_batch``), and the batched
+    scan (``cc_fused_scan_batched``) launches once per bucket scan plus
+    once per cleanup round, counts set to 0 just before. Then 2,048
+    graphs ``rmat(8 + i % 5, 8, seed=i)`` (256-4,096 vertices, 3.2M
+    vertices and 26M edges in all, five buckets): labels equal scipy on
+    every graph, launches counted the same way; the largest bucket's
+    scan bit-equal to ``ref_segment_scan_batched`` (pi and sweeps),
+    timed beside it against its byte bound; every batched launch of one
+    ``solve_batch`` by device time (``torch.profiler``) against its byte
+    bound (each true edge read once, pi read and written once per sweep
+    a hooked graph needed); ``solve_batch`` ms on the host fleet and on
+    the same graphs as ``DeviceGraph``s (CUDA events, median of 3 after
+    a warm-up), split into stacking, bucket solves and results; graphs/s;
+    host syncs a call; ms per graph of a per-graph ``pallas_fused`` loop
+    over the first 256 graphs;
+19. the reference benchmark's ``service`` table at scale 1.0: tenants
+    social ``rmat(22, 7, a=0.45, b=0.22, c=0.22, seed=1)`` and road
+    ``grid_road(4898, extra_prob=0.02, seed=1)``; each tenant's bucket
+    measured once on a fresh ``AutotuneCache(None)`` over the phase-14
+    candidates (the warm start); ``ConnectivityService(slots=32)`` with
+    tracing on; 6 rounds, each tenant 1 insert of a sixth of its edges
+    (permuted by default_rng(0)), 4 ``same_component`` requests of 64
+    pairs and 1 ``count_components``, then one round that deletes 5% of
+    each tenant's edges (default_rng(1)) with the same queries. Gates:
+    one tick a round; every ``same_component`` answer equals numpy over
+    the labels the registry held after its tick, every count the roots
+    of those labels; the final labels equal scipy over the survivors;
+    the service's hook_ops stay below a per-query recompute's. Printed:
+    ms and host syncs of each tick, queries/s, p50/p99 query latency
+    per tenant and global from the service's ``SLORecorder``, the
+    routes, K1-K3 launches.
 
 It prints informative lines, then one JSON line of per-kernel numbers,
 then, as its last line, ``{"ok": true, "device": {...}}``. Without a
@@ -1714,6 +1752,513 @@ def dynamic_phases(torch, np, dev, rows: dict, card: str, graphs: dict) -> dict:
     return out
 
 
+# the batched engine (phase 18): the reference benchmark's fleets
+# (benchmarks/run.py, ``batched``), then BATCH_FULL R-MAT graphs of
+# 256-4,096 vertices, rmat(8 + i % 5, 8, seed=i), in five buckets
+BATCH_FULL = 2048
+BATCH_LOOP = 256                   # graphs of the per-graph solve loop
+# the fleets through repro.api.Solver.solve_batch: per graph (hook_ops,
+# jump_ops, jump_sweeps, hook_rounds, sync_rounds), the reference's
+BATCHED_PARITY = {
+    "molecules-64": (
+        (288,384,12,8,1), (288,352,11,8,1), (576,320,10,9,1), (288,288,9,8,1),
+        (288,320,10,8,1), (288,320,10,8,1), (288,352,11,8,1),
+        (576,384,12,9,1), (288,352,11,8,1), (288,352,11,8,1),
+        (288,384,12,8,1), (288,352,11,8,1), (288,352,11,8,1),
+        (288,352,11,8,1), (288,352,11,8,1), (288,416,13,8,1),
+        (288,352,11,8,1), (288,352,11,8,1), (576,416,13,9,1),
+        (288,320,10,8,1), (288,352,11,8,1), (576,384,12,9,1),
+        (288,352,11,8,1), (288,352,11,8,1), (288,352,11,8,1),
+        (288,320,10,8,1), (288,352,11,8,1), (288,352,11,8,1),
+        (288,384,12,8,1), (288,352,11,8,1), (576,384,12,9,1),
+        (288,448,14,8,1), (288,320,10,8,1), (288,320,10,8,1),
+        (288,352,11,8,1), (288,352,11,8,1), (576,416,13,9,1),
+        (288,352,11,8,1), (288,352,11,8,1), (288,384,12,8,1),
+        (288,352,11,8,1), (288,352,11,8,1), (576,416,13,9,1),
+        (288,416,13,8,1), (288,320,10,8,1), (288,416,13,8,1),
+        (288,352,11,8,1), (288,384,12,8,1), (288,352,11,8,1),
+        (288,352,11,8,1), (288,320,10,8,1), (288,352,11,8,1),
+        (288,352,11,8,1), (288,352,11,8,1), (288,352,11,8,1),
+        (288,352,11,8,1), (288,352,11,8,1), (288,352,11,8,1),
+        (288,320,10,8,1), (288,320,10,8,1), (288,352,11,8,1),
+        (288,352,11,8,1), (288,416,13,8,1), (288,352,11,8,1)
+    ),
+    "mixed-48": (
+        (117,400,10,2,1), (120,410,10,2,1), (123,462,11,2,1),
+        (126,473,11,2,1), (129,484,11,2,1), (132,495,11,2,1),
+        (135,506,11,2,1), (138,517,11,2,1), (141,528,11,2,1),
+        (144,539,11,2,1), (147,600,12,2,1), (150,612,12,2,1),
+        (153,624,12,2,1), (156,636,12,2,1), (159,648,12,2,1),
+        (162,660,12,2,1), (54,48,4,4,1), (90,60,4,4,1), (135,72,4,4,1),
+        (54,48,4,4,1), (90,60,4,4,1), (135,72,4,4,1), (54,48,4,4,1),
+        (90,60,4,4,1), (135,72,4,4,1), (54,48,4,4,1), (90,60,4,4,1),
+        (135,72,4,4,1), (54,48,4,4,1), (90,60,4,4,1), (135,72,4,4,1),
+        (54,48,4,4,1), (492,896,14,5,1), (684,1024,16,6,1), (438,832,13,5,1),
+        (480,960,15,5,1), (498,896,14,5,1), (474,832,13,5,1),
+        (474,896,14,5,1), (468,896,14,5,1), (648,960,15,6,1),
+        (474,896,14,5,1), (657,960,15,6,1), (390,768,12,5,1),
+        (444,832,13,5,1), (792,960,15,6,1), (456,896,14,5,1), (462,896,14,5,1)
+    ),
+    "medium-16": (
+        (6144,6656,26,16,1), (6144,5376,21,16,1), (6144,5376,21,16,1),
+        (6144,5888,23,16,1), (12288,6144,24,17,1), (6144,5888,23,16,1),
+        (6144,5888,23,16,1), (6144,5888,23,16,1), (6144,5888,23,16,1),
+        (6144,6144,24,16,1), (6144,5632,22,16,1), (6144,6400,25,16,1),
+        (6144,5888,23,16,1), (6144,5632,22,16,1), (6144,5376,21,16,1),
+        (6144,5632,22,16,1)
+    ),
+}
+
+
+def batch_fleets() -> dict:
+    """The reference benchmark's fleets (``benchmarks/run.py``,
+    ``batched``), from the port's generators."""
+    from repro_torch.graphs.generators import (chain, disjoint_cliques,
+                                               grid_road, rmat)
+    return {
+        "molecules-64": [rmat(5, 3, seed=s) for s in range(64)],
+        "mixed-48": ([chain(40 + s) for s in range(16)]
+                     + [disjoint_cliques(3, 4 + s % 3, seed=s)
+                        for s in range(16)]
+                     + [grid_road(8, seed=s) for s in range(16)]),
+        "medium-16": [rmat(8, 8, seed=s) for s in range(16)],
+    }
+
+
+def batched_launches(graphs, works) -> tuple[int, int]:
+    """(buckets, launches of the batched scan) a fleet with these
+    per-graph counters needs: one per bucket scan, plus one per cleanup
+    round, a bucket running as many rounds as its slowest graph
+    (hook_rounds - S)."""
+    from repro_torch.core.batch import bucket_shape
+    from repro_torch.core.segmentation import plan_segmentation
+    cleanup = {}
+    for g, w in zip(graphs, works):
+        v_pad, e_pad = bucket_shape(g.num_nodes, g.num_edges)
+        s = plan_segmentation(e_pad, v_pad).num_segments
+        cleanup[(v_pad, e_pad)] = max(cleanup.get((v_pad, e_pad), 0),
+                                      w[3] - s)
+    return len(cleanup), sum(1 + r for r in cleanup.values())
+
+
+def scan_bytes(counts, sweeps, v_pad: int) -> int:
+    """The least bytes of one batched scan launch: each true edge read
+    once (8 B), and for every (graph, segment) that hooks an edge, that
+    graph's pi read and written once per sweep it needed (8 B a vertex
+    a sweep)."""
+    return 8 * int(counts.sum()) + 8 * v_pad * int(
+        (sweeps * (counts > 0)).sum())
+
+
+def batched_phases(torch, np, dev, rows: dict, card: str) -> dict:
+    """Phase 18: ``Solver.solve_batch`` on the benchmark's fleets
+    against the reference's constants, then at full size."""
+    from repro_torch.api import Solver, solve
+    from repro_torch.core import batch as batch_mod, cc
+    from repro_torch.core.unionfind import connected_components_scipy
+    from repro_torch.graphs.device import DeviceGraph
+    from repro_torch.graphs.generators import rmat
+    from repro_torch.kernels.cc_fused import ops as cc_ops, ref as cc_ref
+
+    out = {}
+    t_phase = time.perf_counter()
+    # -- 18a. parity: the benchmark's fleets -------------------------------
+    for name, graphs in batch_fleets().items():
+        consts = BATCHED_PARITY[name]
+        cc_ops.BATCHED.launches = 0
+        res = Solver.solve_batch(graphs)
+        torch.cuda.synchronize()
+        launches = cc_ops.BATCHED.launches
+        buckets, want = batched_launches(graphs, consts)
+        check(launches == want, f"batched {name}: {launches} launches, "
+                                f"{buckets} buckets need {want}")
+        for i, (g, r) in enumerate(zip(graphs, res)):
+            oracle = connected_components_scipy(g.edges, g.num_nodes)
+            check(np.array_equal(r.labels.numpy(), oracle),
+                  f"batched {name} graph {i}: labels differ from scipy")
+            solo = solve(g.edges, g.num_nodes, method="adaptive")
+            check(np.array_equal(solo.labels.cpu().numpy(), oracle),
+                  f"batched {name} graph {i}: per-graph adaptive differs")
+            got = tuple(int(x) for x in r.work)
+            check(got == consts[i], f"batched {name} graph {i}: counters "
+                                    f"{got} != the reference's {consts[i]}")
+        print(f"batched {name}: labels == scipy == per-graph adaptive, "
+              f"counters == the reference's on {len(graphs)} graphs; "
+              f"{launches} launches for {buckets} buckets")
+
+    # -- 18b. full size ------------------------------------------------------
+    t0 = time.perf_counter()
+    fleet = [rmat(8 + i % 5, 8, seed=i) for i in range(BATCH_FULL)]
+    n_v = sum(g.num_nodes for g in fleet)
+    n_e = sum(g.num_edges for g in fleet)
+    oracles = [connected_components_scipy(g.edges, g.num_nodes)
+               for g in fleet]
+    print(f"batched fleet: {BATCH_FULL} graphs, |V| {n_v}, |E| {n_e}; "
+          f"generate and scipy {time.perf_counter() - t0:.1f} s")
+    # the main path, counts set to 0 just before and read just after
+    cc_ops.BATCHED.launches = 0
+    res = Solver.solve_batch(fleet)
+    torch.cuda.synchronize()
+    launches = cc_ops.BATCHED.launches
+    works = [tuple(int(x) for x in r.work) for r in res]
+    buckets, want = batched_launches(fleet, works)
+    check(launches == want, f"batched fleet: {launches} launches, "
+                            f"{buckets} buckets need {want}")
+    for i, (r, oracle) in enumerate(zip(res, oracles)):
+        check(np.array_equal(r.labels.numpy(), oracle),
+              f"batched fleet graph {i}: labels differ from scipy")
+    print(f"batched fleet: labels == scipy on all {BATCH_FULL} graphs; "
+          f"{launches} launches for {buckets} buckets")
+
+    # the largest bucket's scan against the plain version, timed
+    dfleet = [DeviceGraph.from_host(g, device=dev) for g in fleet]
+    big = max(batch_mod.stack_device_graphs(dfleet),
+              key=lambda b: b.edges.numel())
+    segs, counts, plan = batch_mod.bucket_segments(
+        big.edges, torch.from_numpy(big.true_edges).to(dev), big.num_nodes)
+    b, v_pad = segs.shape[0], big.num_nodes
+    pi0 = torch.arange(v_pad, dtype=torch.int32, device=dev) \
+        .expand(b, v_pad).contiguous()
+    got = cc_ops.fused_segment_scan_batched(pi0, segs, counts)
+    want_ = cc_ref.ref_segment_scan_batched(pi0, segs, counts)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(got[0], want_[0]), max_abs_err(got[1], want_[1]))
+    check(err == 0, "cc_fused_batched differs from its plain version on "
+                    "the largest bucket")
+    entry = dict(
+        shape=f"largest bucket scan: B={b} x V_pad={v_pad}, "
+              f"S={plan.num_segments}x{plan.segment_size}, "
+              f"{int(counts.sum())} edges, {int(got[1].sum())} graph "
+              "sweeps",
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: cc_ops.fused_segment_scan_batched(
+            pi0, segs, counts)),
+        plain_ms=time_ms(torch, lambda: cc_ref.ref_segment_scan_batched(
+            pi0, segs, counts), reps=1),
+        bound_ms=bound_ms(scan_bytes(counts, got[1], v_pad)))
+    print(f"cc_fused_batched ({card}): equal to plain; {entry}")
+    del got, want_, segs, counts, pi0, big
+
+    # every batched launch of one solve_batch: its device ms (profiler)
+    # against its byte bound (recorded inputs and sweeps)
+    calls = []
+    kernel_scan = cc_ops.fused_segment_scan_batched
+
+    def recording(pi, segments, true_counts, **kw):
+        p, sw = kernel_scan(pi, segments, true_counts, **kw)
+        calls.append((true_counts, sw, pi.shape[1]))
+        return p, sw
+
+    cc_ops.fused_segment_scan_batched = recording
+    try:
+        per_launch = launch_ms(torch, lambda: (
+            calls.clear(), Solver.solve_batch(dfleet)),
+            "cc_fused_batched_kernel")
+    finally:
+        cc_ops.fused_segment_scan_batched = kernel_scan
+    check(len(per_launch) == len(calls) == launches,
+          f"profile holds {len(per_launch)} batched launches, "
+          f"{len(calls)} calls, the main path {launches}")
+    bounds = [bound_ms(scan_bytes(c, s, v)) for c, s, v in calls]
+    per_kernel, device_total = device_kernels(
+        torch, lambda: Solver.solve_batch(dfleet))
+    print(f"profile batched fleet ({card}): device {device_total:.3f} ms; "
+          f"batched launches ms {[round(t, 3) for t in per_launch]} "
+          f"against bounds {[round(t, 4) for t in bounds]}; top "
+          f"{dict(list(per_kernel.items())[:6])}")
+
+    # times: the host fleet end to end, the DeviceGraph fleet and its
+    # split (stacking, the bucket solves, the rest: the per-graph
+    # results), syncs, and the per-graph loop of pallas_fused solves
+    host_ms = time_ms(torch, lambda: Solver.solve_batch(fleet))
+    dev_ms = time_ms(torch, lambda: Solver.solve_batch(dfleet))
+    stacked = batch_mod.stack_device_graphs(dfleet)
+    stack_ms = time_ms(torch, lambda: batch_mod.stack_device_graphs(dfleet))
+    counts_dev = [(torch.from_numpy(bt.true_edges).to(dev),
+                   torch.from_numpy(bt.true_nodes).to(dev)) for bt in stacked]
+    solve_ms = time_ms(torch, lambda: [batch_mod.solve_bucket(
+        bt.edges, te, tn, bt.num_nodes)
+        for bt, (te, tn) in zip(stacked, counts_dev)])
+    del stacked, counts_dev
+    _, syncs_dev = count_syncs(torch, lambda: Solver.solve_batch(dfleet))
+    _, syncs_host = count_syncs(torch, lambda: Solver.solve_batch(fleet))
+    loop = dfleet[:BATCH_LOOP]
+    loop_ms = time_ms(torch, lambda: [cc.solve_static(
+        g, method="pallas_fused") for g in loop], reps=1)
+    for g, o in zip(loop, oracles):
+        check(np.array_equal(cc.solve_static(g, method="pallas_fused")
+                             .labels.cpu().numpy(), o),
+              "per-graph pallas_fused labels differ from scipy")
+    res = {"graphs": BATCH_FULL, "nodes": n_v, "edges": n_e,
+           "buckets": buckets, "launches": launches,
+           "solve_batch_host_ms": host_ms,
+           "solve_batch_device_graphs_ms": dev_ms,
+           "device_graphs_split_ms": {"stack": stack_ms,
+                                      "bucket_solves": solve_ms,
+                                      "rest": dev_ms - stack_ms - solve_ms},
+           "graphs_per_s_host": BATCH_FULL / host_ms * 1e3,
+           "graphs_per_s_device_graphs": BATCH_FULL / dev_ms * 1e3,
+           "syncs_host": syncs_host, "syncs_device_graphs": syncs_dev,
+           "pergraph_pallas_fused_ms_per_graph": loop_ms / len(loop),
+           "batched_ms_per_graph": dev_ms / BATCH_FULL,
+           "device_ms": device_total,
+           "batched_kernel_ms": sum(per_launch),
+           "batched_kernel_bound_ms": sum(bounds)}
+    print(f"batched fleet ({card}): {json.dumps(res)}")
+    out["batched"] = res
+    rows["cc_fused_batched"] = dict(
+        name="cc_fused_batched", route="cuda",
+        source="src/repro_torch/kernels/csrc/cc_fused.cu",
+        replaces="src/repro/kernels/cc_fused/cc_fused.py:122",
+        launches=launches, equal=True, **entry, bound_by="bytes",
+        library_ms=None,
+        main_path_device_ms={"ms": sum(per_launch),
+                             "launches": len(per_launch),
+                             "bound_ms": sum(bounds)},
+        per_launch_ms=per_launch)
+    out["batched_s"] = time.perf_counter() - t_phase
+    print(f"batched: {out['batched_s']:.1f} s")
+    return out
+
+
+# the service stream (phase 19): the reference benchmark's ``service``
+# table at scale 1.0 (benchmarks/run.py), then one delete round at its
+# dynamic ratio
+SERVICE_ROUNDS = 6
+SERVICE_QUERIES = 4                # same_component requests a round, tenant
+SERVICE_PAIRS = 64
+SERVICE_SLOTS = 32
+SERVICE_SOCIAL_SCALE = 22          # rmat(22, 7): 4,194,304 vertices
+SERVICE_ROAD_SIDE = 4898           # grid_road(4898): 23,990,404 vertices
+
+
+def service_phases(torch, np, dev, rows: dict, card: str) -> dict:
+    """Phase 19: two tenants behind ``ConnectivityService(slots=32)``,
+    tracing on: the stream timed (ticks, SLOs) and its kernel launches
+    counted, then replayed on a fresh registry to count each tick's
+    syncs."""
+    from repro_torch import obs
+    from repro_torch.api import solve
+    from repro_torch.connectivity.policy import AutotuneCache
+    from repro_torch.connectivity.registry import GraphRegistry
+    from repro_torch.connectivity.service import (QUERY_KINDS,
+                                                  ConnectivityService)
+    from repro_torch.core.unionfind import connected_components_scipy
+    from repro_torch.graphs.generators import grid_road, rmat
+    from repro_torch.kernels.cc_fused import ops as cc_ops
+    from repro_torch.kernels.hook import ops as hook_ops
+    from repro_torch.kernels.multi_jump import ops as mj_ops
+
+    t_phase = time.perf_counter()
+    tenants = {
+        "social": rmat(SERVICE_SOCIAL_SCALE, 7, a=0.45, b=0.22, c=0.22,
+                       seed=1, name="social"),
+        "road": grid_road(SERVICE_ROAD_SIDE, extra_prob=0.02, seed=1,
+                          name="road"),
+    }
+    for name, g in tenants.items():
+        print(f"service tenant {name}: |V| {g.num_nodes} |E| {g.num_edges}")
+    print(f"service generate: {time.perf_counter() - t_phase:.1f} s")
+    # warm start: each tenant's bucket measured once, over the candidates
+    # phase 14 times (labelprop left out, as there)
+    t0 = time.perf_counter()
+    cache = AutotuneCache(None)
+    warm = {}
+    for name, g in tenants.items():
+        won = cache.measure(g, methods=MEASURED)
+        warm[name] = {"winner": won, "ms": dict(cache.last_timings)}
+    print(f"service warm start ({card}): {warm}, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(0)
+    splits = {name: np.array_split(rng.permutation(g.num_edges),
+                                   SERVICE_ROUNDS)
+              for name, g in tenants.items()}
+    # the delete round: k = round(0.05 |E|) rows drawn by default_rng(1),
+    # each retiring every copy of its undirected edge
+    drng = np.random.default_rng(1)
+    dels, survivors = {}, {}
+    for name, g in tenants.items():
+        e = g.edges.astype(np.int64)
+        k = int(round(DYN_RATIO * g.num_edges))
+        dels[name] = g.edges[drng.integers(0, g.num_edges, k)]
+        d = dels[name].astype(np.int64)
+        keys = np.minimum(e[:, 0], e[:, 1]) << 32 | np.maximum(e[:, 0],
+                                                               e[:, 1])
+        dkeys = np.minimum(d[:, 0], d[:, 1]) << 32 | np.maximum(d[:, 0],
+                                                                d[:, 1])
+        survivors[name] = g.edges[~np.isin(keys, dkeys)]
+    # the stream, drawn once and submitted alike by both runs below:
+    # per round, (tenant, kind, payload) in submission order
+    stream = []
+    for rnd in range(SERVICE_ROUNDS + 1):
+        subs = []
+        for name, g in tenants.items():
+            subs.append((name, "insert", g.edges[splits[name][rnd]])
+                        if rnd < SERVICE_ROUNDS else
+                        (name, "delete", dels[name]))
+            subs += [(name, "same_component",
+                      rng.integers(0, g.num_nodes, (SERVICE_PAIRS, 2)))
+                     for _ in range(SERVICE_QUERIES)]
+            subs.append((name, "count_components", None))
+        stream.append(subs)
+
+    def open_service():
+        registry = GraphRegistry(policy_cache=cache, device=dev)
+        for name, g in tenants.items():
+            registry.create(name, g.num_nodes)
+        return registry, ConnectivityService(registry, slots=SERVICE_SLOTS)
+
+    def submit(svc, subs) -> dict:
+        pairs = {}
+        for name, kind, payload in subs:
+            if kind == "insert":
+                svc.submit_insert(name, payload)
+            elif kind == "delete":
+                svc.submit_delete(name, payload)
+            else:
+                uid = svc.submit_query(name, kind, payload)
+                if payload is not None:
+                    pairs[uid] = payload
+        return pairs
+
+    # the timed, counted run: tracing on (the SLOs record), no sync
+    # debugging; each tick's kernel counts set to 0 just before its
+    # ``svc.run`` and read just after
+    ks = {"cc_fused": cc_ops.KERNEL, "hook": hook_ops.KERNEL,
+          "multi_jump": mj_ops.KERNEL}
+    launches = dict.fromkeys(ks, 0)
+    registry, svc = open_service()
+    tracer = obs.enable(capacity=1 << 14)
+    tracer.reset()
+    ticks, checked = [], 0
+    try:
+        for rnd, subs in enumerate(stream):
+            kind = "insert" if rnd < SERVICE_ROUNDS else "delete"
+            pairs = submit(svc, subs)
+            before = svc.stats["ticks"]
+            torch.cuda.synchronize()
+            for k in ks.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            done = svc.run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            for k, kern in ks.items():
+                launches[k] += kern.launches
+            check(svc.stats["ticks"] == before + 1,
+                  f"service round {rnd}: not one tick")
+            labels = {name: registry.get(name).labels.cpu().numpy()
+                      for name in tenants}
+            for r in done:
+                check(r.error is None and r.done,
+                      f"service round {rnd}: request {r.uid} failed "
+                      f"({r.error})")
+                lab = labels[r.tenant]
+                if r.kind == "same_component":
+                    p = pairs[r.uid]
+                    check(np.array_equal(r.result, lab[p[:, 0]]
+                                         == lab[p[:, 1]]),
+                          f"service round {rnd}: same_component {r.uid} "
+                          "differs from numpy over the tick's labels")
+                    checked += 1
+                elif r.kind == "count_components":
+                    roots = int((lab == np.arange(lab.shape[0])).sum())
+                    check(int(r.result) == roots,
+                          f"service round {rnd}: count_components "
+                          f"{int(r.result)} != {roots}")
+            ticks.append({"kind": kind, "ms": ms,
+                          "routes": {name: registry.get(name).last_method
+                                     for name in tenants}})
+    finally:
+        obs.disable()
+    stream_s = sum(t["ms"] for t in ticks) / 1e3
+    check(launches["cc_fused"] > 0 or not any(
+        "fused" in r for t in ticks for r in t["routes"].values()),
+        "service: a fused route ran but K1 never launched")
+    final = {}
+    for name, g in tenants.items():
+        final[name] = registry.get(name).labels.cpu().numpy()
+        want = connected_components_scipy(survivors[name], g.num_nodes)
+        check(np.array_equal(final[name], want),
+              f"service {name}: final labels differ from scipy over the "
+              "survivors")
+    # the counterfactual, priced as the reference benchmark prices it:
+    # every query request recomputes the accumulated edge set with
+    # method="adaptive"
+    counter_ops = 0
+    for rnd in range(SERVICE_ROUNDS + 1):
+        for name, g in tenants.items():
+            acc = survivors[name] if rnd == SERVICE_ROUNDS else g.edges[
+                np.concatenate(splits[name][: rnd + 1])]
+            w = solve(acc, g.num_nodes, method="adaptive").work
+            counter_ops += (SERVICE_QUERIES + 1) * int(w.hook_ops)
+    stats = registry.stats()
+    service_ops = sum(s["hook_ops"] for s in stats.values())
+    check(service_ops < counter_ops,
+          f"service hook_ops {service_ops} not below the per-query "
+          f"recompute's {counter_ops}")
+
+    def q_ms(q, tenant=None):
+        return svc.slo.percentile(q, tenant=tenant, kinds=QUERY_KINDS) * 1e3
+
+    quantiles = {**{f"p{int(q * 100)}_ms_query_{name}": q_ms(q, name)
+                    for name in tenants for q in (0.50, 0.99)},
+                 "p50_ms_query_global": q_ms(0.50),
+                 "p99_ms_query_global": q_ms(0.99)}
+    latency = svc.obs_summary()["latency"]
+    svc_stats = dict(svc.stats)
+    del registry, svc
+    torch.cuda.empty_cache()
+    # the syncs: a replay of the same stream on a fresh registry, each
+    # tick under sync debugging, whose warnings would weigh on the timed
+    # run's ticks and SLOs
+    registry, svc = open_service()
+    obs.enable(capacity=1 << 14).reset()
+    try:
+        for rnd, subs in enumerate(stream):
+            submit(svc, subs)
+            _, ticks[rnd]["syncs"] = count_syncs(torch, svc.run)
+            check({name: registry.get(name).last_method for name in tenants}
+                  == ticks[rnd]["routes"],
+                  f"service replay round {rnd}: routes differ from the "
+                  "timed run's")
+    finally:
+        obs.disable()
+    for name in tenants:
+        check(np.array_equal(registry.get(name).labels.cpu().numpy(),
+                             final[name]),
+              f"service replay {name}: final labels differ")
+    del registry, svc
+    torch.cuda.empty_cache()
+
+    res = {
+        "queries": svc_stats["queries_served"],
+        "same_component_checked": checked,
+        "stream_ms": stream_s * 1e3,
+        "queries_per_s": svc_stats["queries_served"] / stream_s,
+        "tick_ms": {t["kind"] + str(i): t["ms"]
+                    for i, t in enumerate(ticks)},
+        "tick_syncs": {t["kind"] + str(i): t["syncs"]
+                       for i, t in enumerate(ticks)},
+        "routes": [t["routes"] for t in ticks],
+        "hook_ops_service": service_ops,
+        "hook_ops_perquery_recompute": counter_ops,
+        **quantiles,
+        "launches": launches,
+        "tenant_stats": {n: {k: s[k] for k in (
+            "absorbs", "scoped_deletes", "rebuilds", "cache_hits",
+            "version", "num_edges_deleted")} for n, s in stats.items()},
+        "stats": svc_stats,
+    }
+    print(f"service ({card}): {json.dumps(res)}")
+    print(f"service latency ({card}): {json.dumps(latency)}")
+    rows["cc_fused"]["launches_service"] = launches["cc_fused"]
+    out = {"service": res, "service_s": time.perf_counter() - t_phase}
+    print(f"service: {out['service_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     # the one torch.compile (phase 11's flex_attention yardstick) keeps
     # its caches in the checkout's build directory and compiles in-process
@@ -2120,11 +2665,18 @@ def main() -> int:
 
     # -- 16.-17. the dynamic stream ------------------------------------------
     e2e.update(dynamic_phases(torch, np, dev, rows, card, graphs))
+
+    # -- 18. the batched engine ----------------------------------------------
+    e2e.update(batched_phases(torch, np, dev, rows, card))
+
+    # -- 19. the connectivity service ----------------------------------------
+    e2e.update(service_phases(torch, np, dev, rows, card))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [rows[k] for k in (
-        "cc_fused", "hook", "hook_snapshot", "multi_jump",
+        "cc_fused", "cc_fused_batched", "hook", "hook_snapshot",
+        "multi_jump",
         "multi_jump_sequential",
         "embedding_bag", "segment_reduce", "segment_reduce_atomic",
         "flash_attention")]}))

@@ -3,9 +3,11 @@
   * adaptive work-efficient connected components (the static solve
     path, the spanning forest, the sampled engines, the queries, the
     incremental and fully-dynamic engines behind ``Solver.insert`` /
-    ``delete``, and the ``Solver`` front door with its method policy),
-    with hand-written Hopper kernels behind the ``pallas``,
-    ``pallas_fused`` and ``sampled_fused`` backends and the fused scoped
+    ``delete``, the batched engine behind ``Solver.solve_batch``, the
+    ``Solver`` front door with its method policy, and the multi-tenant
+    registry and microbatching service with latency SLOs), with
+    hand-written Hopper kernels behind the ``pallas``, ``pallas_fused``,
+    ``sampled_fused`` and ``batched`` backends and the fused scoped
     delete (``core``, ``graphs``, ``connectivity``, ``api``, ``obs``);
   * the recsys serving path: DCN-v2 ``serve`` and ``retrieval`` cells
     (``launch.steps.build_cell``, ``models.recsys``, ``configs``,

@@ -7,14 +7,14 @@ reference's. The per-round kernel backend ``pallas`` and ``hostloop``
 return labels with zero or partial counters.
 
 On a CUDA graph, ``pallas_fused`` and ``sampled_fused`` run the fused
-segment-scan kernel and ``pallas`` the hook and multi_jump kernels; a
-kernel that does not build or launch raises.
+segment-scan kernel, ``pallas`` the hook and multi_jump kernels, and
+``batched`` (a fleet, through ``Solver.solve_batch``) the fused kernel's
+batched entry; a kernel that does not build or launch raises.
 
 The streaming engines ``incremental`` and ``dynamic`` also give the
 ``Solver`` its live state (``make_state``).
 
-Not registered yet: ``batched`` (ROADMAP.md queue A, item A8),
-``distributed`` (A10).
+Not registered yet: ``distributed`` (ROADMAP.md queue A, item A10).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.api.registry import Capabilities, register_backend
-from repro_torch.core import cc as cc_mod
+from repro_torch.core import batch as batch_mod, cc as cc_mod
 from repro_torch.core.cc import CCResult
 from repro_torch.core.incremental import DynamicCC, IncrementalCC
 from repro_torch.core.rounds import WorkCounters
@@ -129,6 +129,21 @@ def _hostloop(plan: ExecutionPlan) -> CCResult:
         hook_rounds=stats["hook_rounds"], jump_sweeps=stats["jump_sweeps"],
         sync_rounds=stats["sync_rounds"])
     return CCResult(torch.from_numpy(labels).to(g.device), work)
+
+
+# ---------------------------------------------------------------------------
+# Batched engine (many graphs, one kernel launch per shape bucket scan)
+# ---------------------------------------------------------------------------
+
+@register_backend("batched", Capabilities(static=True, batched=True,
+                                          bit_exact_counters=True))
+def _batched(plan: ExecutionPlan) -> list[CCResult]:
+    """Shape-bucketed engine; one ``CCResult`` per input graph, labels
+    and counters equal to the reference's ``solve_batched``."""
+    return batch_mod.solve_batched(plan.graphs,
+                                   num_segments=plan.num_segments,
+                                   lift_steps=plan.lift_steps,
+                                   device=plan.opts.get("device"))
 
 
 # ---------------------------------------------------------------------------

@@ -22,10 +22,11 @@
     bucket, the segmentation and the predicted work before anything
     runs.
 
-One-shot: ``repro_torch.api.solve(graph, ...) -> CCResult``.
+One-shot: ``repro_torch.api.solve(graph, ...) -> CCResult``; fleets:
+``Solver.solve_batch(graphs)``.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md queue A item: ``solve_batch`` (A8), ``mesh=`` sessions (A10).
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
+queue A item: ``mesh=`` sessions (A10).
 
 The session lives on one device: a host graph goes to ``device`` (CUDA
 when None; with no CUDA it raises), a ``DeviceGraph`` or tensor stays
@@ -196,7 +197,11 @@ class Solver:
             else num_segments
         n, e = self.num_nodes, self.num_edges
         if backend is not None:
-            get_backend(backend)                      # validates early
+            caps = get_backend(backend).capabilities   # validates early
+            if caps.batched:
+                raise ValueError(
+                    f"backend {backend!r} runs fleets, not single "
+                    "graphs — use Solver.solve_batch(graphs)")
             chosen, reason = backend, "forced"
         elif method not in (None, "auto"):
             if method not in _PLANNABLE:
@@ -276,8 +281,30 @@ class Solver:
         return res
 
     @classmethod
-    def solve_batch(cls, graphs, **kw):
-        raise _not_ported("Solver.solve_batch", "A8")
+    def solve_batch(cls, graphs, *, num_segments: int | None = None,
+                    lift_steps: int = 2, device=None) -> list[CCResult]:
+        """Fleet solve through the ``batched`` backend: one kernel launch
+        per power-of-two shape bucket scan (and per cleanup round), one
+        ``CCResult`` per graph in input order, labels and counters equal
+        to the reference's. Host graphs run on ``device`` (CUDA when
+        None) and come back on the CPU; a ``DeviceGraph`` fleet stays on
+        its device."""
+        graphs = list(graphs)
+        sizes = [(g.num_nodes, g.num_edges)
+                 if hasattr(g, "num_nodes")
+                 else (int(g[1]), g[0].numel() // 2
+                       if isinstance(g[0], torch.Tensor)
+                       else int(np.asarray(g[0]).reshape(-1, 2).shape[0]))
+                 for g in graphs]
+        n = max((s[0] for s in sizes), default=0)
+        e = sum(s[1] for s in sizes)
+        plan = ExecutionPlan(
+            backend="batched", reason="forced", num_nodes=n, num_edges=e,
+            bucket=bucket_shape(n, e), segmentation=None,
+            lift_steps=lift_steps, num_segments=num_segments,
+            graphs=graphs, opts={"device": device},
+            predicted={"n_graphs": len(graphs)})
+        return plan.run()
 
     # -- streaming mutation (policy-routed) ---------------------------------
 

@@ -202,6 +202,39 @@ class DeviceGraph:
         e = int(self.edges.shape[0])
         return self.pad_rows(next_pow2(max(e, min_rows)))
 
+    @classmethod
+    def concat(cls, graphs, name: str | None = None) -> "DeviceGraph":
+        """Concatenate same-|V| graphs on their device (the service's
+        coalescing primitive). Every part needs a host-known true count:
+        a part whose count lives on the device (an ``EdgeLog`` view) is
+        refused, since its padding would land inside the result where
+        the engines read it as real edges. Padded parts are trimmed to
+        their true rows first, so the result keeps the prefix invariant.
+
+        ``degree_skew`` joins by the max of the parts' known values and
+        stays None when no part has one: a dropped skew would flip
+        ``method="auto"`` mid-session."""
+        graphs = list(graphs)
+        if not graphs:
+            raise ValueError("concat needs at least one DeviceGraph")
+        if len({g.num_nodes for g in graphs}) != 1:
+            raise ValueError("concat requires identical num_nodes, got "
+                             f"{[g.num_nodes for g in graphs]}")
+        if len(graphs) == 1:
+            return graphs[0]
+        if any(g.count_on_device for g in graphs):
+            raise ValueError(
+                "concat needs static true_edges on every part "
+                "(prefix-padding invariant)")
+        edges = torch.cat([g.edges[:g.true_edges] for g in graphs], dim=0)
+        true = sum(g.true_edges for g in graphs)
+        plan = _plan_for(int(edges.shape[0]), graphs[0].num_nodes, true,
+                         None)
+        skews = [g.degree_skew for g in graphs if g.degree_skew is not None]
+        return cls(edges, graphs[0].num_nodes, true, plan,
+                   name=name or graphs[0].name,
+                   degree_skew=max(skews) if skews else None)
+
     def __repr__(self) -> str:
         t = self.true_edges
         return (f"DeviceGraph(|V|={self.num_nodes}, "

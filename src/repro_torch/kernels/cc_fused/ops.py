@@ -1,4 +1,7 @@
-"""Wrapper of the fused segment-scan kernel (``csrc/cc_fused.cu``)."""
+"""Wrappers of the fused segment-scan kernel (``csrc/cc_fused.cu``): one
+graph's scan (``fused_segment_scan``, launches counted on ``KERNEL``)
+and a shape bucket's scan over all its graphs at once
+(``fused_segment_scan_batched``, counted on ``BATCHED``)."""
 from __future__ import annotations
 
 import ctypes
@@ -7,11 +10,16 @@ import torch
 
 from repro_torch.core.rounds import compress_fuel
 from repro_torch.kernels import Kernel, check_int32, stream_of
-from repro_torch.kernels.cc_fused.ref import ref_segment_scan
+from repro_torch.kernels.cc_fused.ref import (ref_segment_scan,
+                                              ref_segment_scan_batched)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = Kernel("cc_fused", "cc_fused_scan",
                 [_P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P])
+BATCHED = Kernel("cc_fused", "cc_fused_scan_batched",
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _P])
+_INT32_LIMIT = 2**31
 
 
 def fused_segment_scan(pi: torch.Tensor, segments: torch.Tensor,
@@ -59,4 +67,81 @@ def fused_segment_scan(pi: torch.Tensor, segments: torch.Tensor,
                       out.data_ptr(), scratch.data_ptr(), hilo.data_ptr(),
                       flags.data_ptr(), sweeps.data_ptr(), pi.shape[0],
                       num_segments, seg, lift_steps, fuel, stream_of(pi))
+    return out, sweeps
+
+
+def check_batch_extent(batch: int, v_pad: int, seg: int) -> None:
+    """Raise ``ValueError`` unless a bucket of ``batch`` graphs of
+    ``v_pad`` vertices (a power of two) and ``seg`` edge slots a segment
+    indexes within int32: the batched kernel addresses pi and its slots
+    with 32-bit ids and must not wrap around."""
+    if v_pad < 1 or v_pad & (v_pad - 1):
+        raise ValueError(f"V_pad must be a power of two, got {v_pad}")
+    for what, n in (("B * V_pad", batch * v_pad), ("B * seg", batch * seg)):
+        if n >= _INT32_LIMIT:
+            raise ValueError(f"{what} = {n} does not fit int32: split the "
+                             "bucket")
+
+
+def fused_segment_scan_batched(pi: torch.Tensor, segments: torch.Tensor,
+                               true_counts: torch.Tensor, *,
+                               lift_steps: int = 2, fuel: int | None = None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The segment scan of a bucket of B same-shape graphs in ONE launch.
+
+    Args:
+      pi: int32 [B, V_pad] parent workspaces in LOCAL vertex ids, V_pad a
+        power of two (not modified).
+      segments: int32 [B, S, seg, 2] edge segments in local ids.
+      true_counts: int32 [B, S] per-graph, per-segment true edge counts;
+        slots past them are masked to (0, 0) no-ops.
+      fuel: compress fuel per segment, the same for every graph; None
+        derives ``compress_fuel(V_pad)``.
+
+    Returns:
+      (pi' [B, V_pad], sweeps int32 [B, S]): each graph's pi and sweeps
+      equal ``fused_segment_scan`` on that graph alone. A CPU ``pi`` runs
+      the plain version; a CUDA one the kernel. B * V_pad and B * seg
+      must stay below 2^31 (``ValueError`` otherwise).
+    """
+    if pi.dim() != 2 or segments.dim() != 4 or true_counts.dim() != 2:
+        raise ValueError(f"pi {tuple(pi.shape)}, segments "
+                         f"{tuple(segments.shape)} and true_counts "
+                         f"{tuple(true_counts.shape)} must be [B, V_pad], "
+                         "[B, S, seg, 2] and [B, S]")
+    batch, v_pad = pi.shape
+    _, num_segments, seg, two = segments.shape
+    if two != 2 or segments.shape[0] != batch \
+            or tuple(true_counts.shape) != (batch, num_segments):
+        raise ValueError(f"segments {tuple(segments.shape)} and true_counts "
+                         f"{tuple(true_counts.shape)} do not match pi "
+                         f"{tuple(pi.shape)}")
+    check_batch_extent(batch, v_pad, seg)
+    if fuel is None:
+        fuel = compress_fuel(v_pad)
+    true_counts = true_counts.to(torch.int32)
+    if pi.device.type == "cpu":
+        return ref_segment_scan_batched(pi, segments, true_counts,
+                                        lift_steps=lift_steps, fuel=fuel)
+    check_int32("pi", pi, 2)
+    check_int32("segments", segments, 4)
+    check_int32("true_counts", true_counts, 2)
+    if not (segments.device == pi.device == true_counts.device):
+        raise ValueError("pi, segments and true_counts must share a device")
+    out = pi.clone()
+    sweeps = torch.zeros((batch, num_segments), dtype=torch.int32,
+                         device=pi.device)
+    if batch == 0 or num_segments == 0 or seg == 0:
+        return out, sweeps
+    scratch = torch.empty_like(pi)
+    hilo = torch.empty((batch * seg, 2), dtype=torch.int32, device=pi.device)
+    flags = torch.zeros(num_segments * fuel * (batch + 1), dtype=torch.int32,
+                        device=pi.device)
+    any_flags = flags[num_segments * fuel * batch:]
+    with torch.cuda.device(pi.device):
+        BATCHED.launch(segments.data_ptr(), true_counts.data_ptr(),
+                       out.data_ptr(), scratch.data_ptr(), hilo.data_ptr(),
+                       flags.data_ptr(), any_flags.data_ptr(),
+                       sweeps.data_ptr(), batch, v_pad.bit_length() - 1,
+                       num_segments, seg, lift_steps, fuel, stream_of(pi))
     return out, sweeps

@@ -29,3 +29,25 @@ def ref_segment_scan(pi: torch.Tensor, segments: torch.Tensor,
         pi, n = rounds.jacobi_sweeps(pi, fuel)
         sweeps.append(n)
     return pi, torch.tensor(sweeps, dtype=torch.int32, device=pi.device)
+
+
+def ref_segment_scan_batched(pi: torch.Tensor, segments: torch.Tensor,
+                             true_counts: torch.Tensor, *,
+                             lift_steps: int = 2, fuel: int | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ref_segment_scan`` on each graph of a bucket alone: pi [B,
+    V_pad] in local ids, segments [B, S, seg, 2], true_counts [B, S];
+    ``fuel`` (default ``compress_fuel(V_pad)``) the same for every graph.
+    Returns (pi' [B, V_pad], sweeps int32 [B, S])."""
+    if fuel is None:
+        fuel = rounds.compress_fuel(pi.shape[1])
+    out, sweeps = [], []
+    for p, segs, counts in zip(pi, segments, true_counts):
+        p, sw = ref_segment_scan(p, segs, counts, lift_steps=lift_steps,
+                                 fuel=fuel)
+        out.append(p)
+        sweeps.append(sw)
+    if not out:
+        return pi.clone(), torch.zeros((0, segments.shape[1]),
+                                       dtype=torch.int32, device=pi.device)
+    return torch.stack(out), torch.stack(sweeps)

@@ -2,7 +2,10 @@
 // of one segment scan in ONE persistent cooperative launch.
 //
 // Replaces: src/repro/kernels/cc_fused/cc_fused.py, _cc_fused_kernel /
-// cc_fused_pallas (entry ops.fused_segment_scan). On the TPU the grid
+// cc_fused_pallas (entries ops.fused_segment_scan and, with a batch
+// axis, ops.fused_segment_scan_batched: the batched engine's scan of one
+// shape bucket, which the reference runs as its jnp rounds under vmap).
+// On the TPU the grid
 // runs in order over segments and pi stays resident in VMEM; here the
 // blocks of one co-resident grid walk the segments together and meet at
 // grid-wide barriers, with pi in device memory.
@@ -107,6 +110,118 @@ cc_fused_kernel(const int* __restrict__ segs, const int* __restrict__ counts,
   }
 }
 
+
+// The batch axis (repro.core.batch runs one bucket of B same-shape graphs
+// as one vmapped program): B graphs of V_pad = 2^log2_vp vertices each,
+// pi [B * V_pad] with graph g at offset g * V_pad holding LOCAL ids,
+// segments [B, S, seg, 2] in local ids, counts [B, S]. Each step above
+// runs over all B graphs at once: the hooks over B * seg slots, the
+// sweeps over B * V_pad entries, one grid barrier each for the whole
+// bucket. The stop is uniform (a sweep runs while ANY graph changed),
+// the billing per graph: a sweep that changes graph g sets g's flag
+// (flags [S, fuel, B]; one atomic per (warp, graph): a warp ballot
+// masked to the lanes of one graph, which are all 32 when V_pad >= 32,
+// else aligned groups of V_pad), and sweeps[g, i] is 1 + the index of
+// g's first sweep with no change, or the sweeps run when it has none
+// (fuel). A graph at its fixpoint is not moved by the sweeps it waits
+// through, so pi and sweeps equal the plain version run graph by graph,
+// as the vmapped while_loop of the reference bills each graph alone.
+// B * V_pad and B * seg are below 2^31 (the wrapper checks).
+__global__ void __launch_bounds__(kThreads)
+cc_fused_batched_kernel(const int* __restrict__ segs,
+                        const int* __restrict__ counts, int* pi_a, int* pi_b,
+                        int2* hilo, int* flags, int* any_flags,
+                        int* __restrict__ sweeps, int batch, int log2_vp,
+                        int num_segments, int seg, int lift_steps, int fuel) {
+  cg::grid_group grid = cg::this_grid();
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int vp = 1 << log2_vp;
+  const int total = batch << log2_vp;
+  const long long slots = (long long)batch * seg;
+  // this lane's graph-mates in the warp, and whether it leads them
+  const unsigned group =
+      vp >= 32 ? 0xffffffffu : ((1u << vp) - 1u) << (lane & ~(vp - 1));
+  const bool leader = lane == (vp >= 32 ? 0 : (lane & ~(vp - 1)));
+  int* A = pi_a;
+  int* B = pi_b;
+  for (int i = 0; i < num_segments; ++i) {
+    // 1. gather + root chase, each graph from one snapshot of its pi
+    for (long long j = tid; j < slots; j += stride) {
+      const int g = (int)(j / seg);
+      const int k = (int)(j - (long long)g * seg);
+      const long long row = (long long)g * num_segments + i;
+      int u = 0, v = 0;
+      if (k < __ldg(counts + row)) {
+        const int* sp = segs + 2 * (row * seg + k);
+        u = __ldg(sp);
+        v = __ldg(sp + 1);
+      }
+      const int base = g << log2_vp;
+      int pu = __ldcg(A + base + u);
+      int pv = __ldcg(A + base + v);
+      for (int s = 0; s < lift_steps; ++s) {
+        pu = __ldcg(A + base + pu);
+        pv = __ldcg(A + base + pv);
+      }
+      hilo[j] = make_int2(base + max(pu, pv), min(pu, pv));
+    }
+    grid.sync();
+    // 2. scatter-min, no-op atomics skipped
+    for (long long j = tid; j < slots; j += stride) {
+      const int2 h = hilo[j];
+      if (h.y < __ldcg(A + h.x)) atomicMin(A + h.x, h.y);
+    }
+    grid.sync();
+    // 3. Jacobi sweeps over the whole bucket while any graph changed
+    int* gflags = flags + (long long)i * fuel * batch;
+    int n = 0;
+    while (n < fuel) {
+      int changed_any = 0;
+      // warp-uniform trip count, so the ballot sees every lane
+      for (long long w = tid - lane; w < total; w += stride) {
+        const int v = (int)w + lane;
+        int changed = 0;
+        if (v < total) {
+          const int a = __ldcg(A + v);
+          const int b = __ldcg(A + ((v >> log2_vp) << log2_vp) + a);
+          __stcg(B + v, b);
+          changed = b != a;
+        }
+        const unsigned hit = __ballot_sync(0xffffffffu, changed) & group;
+        if (hit && leader)
+          atomicExch(gflags + (long long)n * batch + (v >> log2_vp), 1);
+        changed_any |= changed;
+      }
+      int* any = any_flags + (long long)i * fuel + n;
+      if (__syncthreads_or(changed_any) && threadIdx.x == 0)
+        atomicExch(any, 1);
+      grid.sync();
+      ++n;
+      if (__ldcg(any) == 0) break;  // B == A: either buffer holds pi
+      int* t = A;
+      A = B;
+      B = t;
+    }
+    // 4. per-graph sweeps: 1 + the first sweep that left g unchanged
+    for (long long g = tid; g < batch; g += stride) {
+      int s = n;
+      for (int k = 0; k < n; ++k) {
+        if (__ldcg(gflags + (long long)k * batch + g) == 0) {
+          s = k + 1;
+          break;
+        }
+      }
+      sweeps[g * num_segments + i] = s;
+    }
+  }
+  if (A != pi_a) {
+    for (long long v = tid; v < total; v += stride)
+      __stcg(pi_a + v, __ldcg(A + v));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -154,6 +269,55 @@ int cc_fused_scan(const void* segs, const void* counts, void* pi_a,
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(cc_fused_kernel), dim3((unsigned)blocks),
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The batched entry: pi_a [B * 2^log2_vp] holds the bucket's pi (local
+// ids) on entry and the result on exit; pi_b is scratch of the same
+// size, hilo [B * seg] int2 scratch, flags [S * fuel * B] and any_flags
+// [S * fuel] zeroed ints, sweeps [B, S] output. Same launch rules as
+// cc_fused_scan, the grid sized from max(B * seg, B * V_pad).
+int cc_fused_scan_batched(const void* segs, const void* counts, void* pi_a,
+                          void* pi_b, void* hilo, void* flags,
+                          void* any_flags, void* sweeps, int batch,
+                          int log2_vp, int num_segments, int seg,
+                          int lift_steps, int fuel, void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int coop = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, cc_fused_batched_kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const long long slots = (long long)batch * seg;
+  const long long total = (long long)batch << log2_vp;
+  const long long items = slots > total ? slots : total;
+  long long want = (items + kThreads - 1) / kThreads;
+  long long blocks = (long long)per_sm * sms;
+  if (want < blocks) blocks = want < 1 ? 1 : want;
+
+  const int* a_segs = static_cast<const int*>(segs);
+  const int* a_counts = static_cast<const int*>(counts);
+  int* a_pi = static_cast<int*>(pi_a);
+  int* a_pib = static_cast<int*>(pi_b);
+  int2* a_hilo = static_cast<int2*>(hilo);
+  int* a_flags = static_cast<int*>(flags);
+  int* a_any = static_cast<int*>(any_flags);
+  int* a_sweeps = static_cast<int*>(sweeps);
+  void* args[] = {&a_segs, &a_counts, &a_pi, &a_pib, &a_hilo, &a_flags,
+                  &a_any, &a_sweeps, &batch, &log2_vp, &num_segments, &seg,
+                  &lift_steps, &fuel};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(cc_fused_batched_kernel),
+      dim3((unsigned)blocks), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

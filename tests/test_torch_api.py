@@ -21,7 +21,7 @@ import repro_torch
 from repro_torch.connectivity import policy as tpolicy
 from repro_torch.core import cc as tcc
 
-NOT_PORTED = {"batched", "distributed"}
+NOT_PORTED = {"distributed"}
 GRAPHS = [(name, n, e) for name, n, e in corpus()] + [
     (f"{name}@0.002", g.num_nodes, g.edges) for name, g in
     ((name, table1_scaled(name, scale=0.002, seed=1))
@@ -50,8 +50,8 @@ def test_capability_matrix_matches_reference():
         assert caps == want[name], name
     assert repro_torch.available_backends() == sorted(got)
     assert isinstance(repro_torch.get_backend("sampled"), repro_torch.Backend)
-    with pytest.raises(KeyError, match="batched"):
-        repro_torch.get_backend("batched")
+    with pytest.raises(KeyError, match="distributed"):
+        repro_torch.get_backend("distributed")
 
 
 @pytest.mark.parametrize("name,n,edges", GRAPHS, ids=GIDS)
@@ -63,6 +63,14 @@ def test_solver_plans_and_solves_match_reference(name, n, edges):
     assert tp.explain() == jp.explain()
     assert tp.trace_tags() == jp.trace_tags()
     for backend in repro_torch.available_backends():
+        if repro_torch.get_backend(backend).capabilities.batched:
+            # a fleet backend: both sessions refuse it, alike
+            with pytest.raises(ValueError) as jerr:
+                j.solve(backend=backend)
+            with pytest.raises(ValueError) as terr:
+                t.solve(backend=backend)
+            assert str(terr.value) == str(jerr.value)
+            continue
         want = j.solve(backend=backend)
         got = t.solve(backend=backend)
         assert got.labels.dtype == torch.int32, backend
@@ -224,7 +232,6 @@ def test_session_state_of_a_static_session():
     (lambda s: s.delete([[0, 1]]), "A6"),
     (lambda s: s.enable_metrics(), "A6"),
     (lambda s: s.metrics_summary(), "A6"),
-    (lambda s: repro_torch.Solver.solve_batch([s.graph()]), "A8"),
     (lambda s: repro_torch.Solver.open(s.graph(), mesh=object()), "A10"),
 ])
 def test_unported_session_features_raise(call, item):
@@ -237,6 +244,22 @@ def test_unported_session_features_raise(call, item):
         return
     with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
         call(s)
+
+
+def test_solve_batch_runs_and_batched_backend_is_fleet_only():
+    """``Solver.solve_batch`` runs (A8 is ported); forcing the fleet
+    backend on one graph raises the reference's ValueError."""
+    s = repro_torch.Solver.open([[0, 1], [1, 2]], 4, device="cpu")
+    out = repro_torch.Solver.solve_batch([s.graph()])
+    np.testing.assert_array_equal(out[0].labels.numpy(), [0, 0, 0, 3])
+    want = repro.Solver.solve_batch([(np.asarray([[0, 1], [1, 2]]), 4)])
+    assert _ints(out[0].work) == _ints(want[0].work)
+    j = repro.Solver.open([[0, 1], [1, 2]], 4)
+    with pytest.raises(ValueError) as jerr:
+        j.solve(backend="batched")
+    with pytest.raises(ValueError) as terr:
+        s.solve(backend="batched")
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_open_without_cuda_or_device_raises(monkeypatch):

@@ -115,6 +115,89 @@ def test_cc_fused_kernel_exhausted_fuel_matches_plain(dev):
         assert torch.equal(got[1], want[1])
 
 
+def _bucket(batch: int, v_pad: int, segments: int, seg: int, seed: int,
+            dev):
+    """A bucket's batched-scan inputs: random local-id segments, per-graph
+    counts from 0 to seg (some graphs empty), pi random forests."""
+    rng = np.random.default_rng(seed)
+    segs = rng.integers(0, v_pad, (batch, segments, seg, 2))
+    counts = rng.integers(0, seg + 1, (batch, segments))
+    counts[::7] = 0
+    pi = np.minimum(np.arange(v_pad), rng.integers(0, v_pad, (batch, v_pad)))
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(dev)
+                 for a in (pi, segs, counts))
+
+
+@pytest.mark.parametrize("v_pad,batch,segments,seg", [
+    (8, 300, 3, 8), (64, 100, 4, 50), (256, 40, 2, 300),
+    (4096, 10, 5, 2000)])
+@pytest.mark.parametrize("lift", (0, 2))
+def test_cc_fused_batched_kernel_matches_plain(dev, v_pad, batch, segments,
+                                               seg, lift):
+    """The batched entry equals ``ref_segment_scan_batched`` (pi and the
+    per-graph sweeps) where a block spans many graphs (V_pad 8, 64) and
+    where a graph spans many blocks (4096), from identity and from random
+    forests; one launch per call."""
+    pi, segs, counts = _bucket(batch, v_pad, segments, seg, v_pad + lift,
+                               dev)
+    for pi0 in (torch.arange(v_pad, dtype=torch.int32, device=dev)
+                .expand(batch, v_pad).contiguous(), pi):
+        before = cc_ops.BATCHED.launches
+        got = cc_ops.fused_segment_scan_batched(pi0, segs, counts,
+                                                lift_steps=lift)
+        want = cc_ref.ref_segment_scan_batched(pi0, segs, counts,
+                                               lift_steps=lift)
+        torch.cuda.synchronize()
+        assert cc_ops.BATCHED.launches == before + 1
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+def test_cc_fused_batched_kernel_exhausted_fuel_matches_plain(dev):
+    """Chains that need more sweeps than the fuel gives, beside graphs
+    that converge at once: the per-graph sweep counts stop at the fuel."""
+    v_pad, batch = 1024, 6
+    idx = np.arange(v_pad - 1)
+    chain = np.stack([idx + 1, idx], 1)
+    segs = np.zeros((batch, 1, v_pad - 1, 2), np.int64)
+    segs[::2, 0] = chain
+    segs = torch.from_numpy(segs.astype(np.int32)).to(dev)
+    counts = torch.full((batch, 1), v_pad - 1, dtype=torch.int32, device=dev)
+    pi0 = torch.arange(v_pad, dtype=torch.int32, device=dev) \
+        .expand(batch, v_pad).contiguous()
+    for fuel in (1, 2, 3, 20):
+        got = cc_ops.fused_segment_scan_batched(pi0, segs, counts,
+                                                lift_steps=0, fuel=fuel)
+        want = cc_ref.ref_segment_scan_batched(pi0, segs, counts,
+                                               lift_steps=0, fuel=fuel)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+def test_solve_batch_on_the_card_matches_the_cpu(dev):
+    """``Solver.solve_batch`` on CUDA gives the CPU run's labels and
+    counters, launching the batched scan once per bucket plus once per
+    cleanup round."""
+    from repro_torch.api import Solver
+    from repro_torch.graphs.generators import rmat
+    graphs = [rmat(5 + i % 4, 6, seed=i) for i in range(40)]
+    cc_ops.BATCHED.launches = 0
+    got = Solver.solve_batch(graphs)
+    launches = cc_ops.BATCHED.launches
+    want = Solver.solve_batch(graphs, device="cpu")
+    buckets = {(g.num_nodes, g.num_edges) for g in graphs}
+    assert launches >= len(buckets)
+    for a, b in zip(got, want):
+        assert a.labels.device.type == "cpu"
+        assert torch.equal(a.labels, b.labels)
+        assert [int(x) for x in a.work] == [int(x) for x in b.work]
+    dgs = [DeviceGraph.from_host(g, device=dev) for g in graphs[:8]]
+    on_card = Solver.solve_batch(dgs)
+    assert all(r.labels.is_cuda for r in on_card)
+    for a, b in zip(on_card, want[:8]):
+        assert torch.equal(a.labels.cpu(), b.labels)
+
+
 @pytest.mark.parametrize("tile", (1, 7, 256, 1000, 1024, 2000, 6144))
 @pytest.mark.parametrize("lift", (0, 2))
 def test_hook_kernel_matches_plain(dev, tile, lift):
@@ -409,6 +492,10 @@ def test_solver_on_card_matches_cpu(dev, name):
     for backend in available_backends():
         if backend == "labelprop" and name.endswith("osm"):
             continue                # thousands of rounds on a road graph
+        if backend == "batched":    # a fleet backend: refused alike
+            with pytest.raises(ValueError, match="runs fleets"):
+                s.solve(backend=backend)
+            continue
         hook_ops.KERNEL.launches = 0
         got = s.solve(backend=backend)
         torch.cuda.synchronize()

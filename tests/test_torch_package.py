@@ -45,6 +45,8 @@ def test_import_loads_no_jax_and_no_reference():
             "import repro_torch.core.sampled, repro_torch.core.batch\n"
             "import repro_torch.connectivity.policy, repro_torch.api.solver\n"
             "import repro_torch.core.incremental, repro_torch.obs.metrics\n"
+            "import repro_torch.connectivity.registry, repro_torch.obs.slo\n"
+            "import repro_torch.connectivity.service, repro_torch.obs.__main__\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
@@ -92,6 +94,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         repro_torch.solve(edges, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.Solver.open(edges, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.Solver.solve_batch([(edges, 4)])
+    from repro_torch.connectivity import ConnectivityService, GraphRegistry
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GraphRegistry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ConnectivityService()
     g = tdev.DeviceGraph.from_edges(edges, 4, device="cpu")
     assert g.device.type == "cpu"
     assert g.edges.dtype == torch.int32
