@@ -205,7 +205,43 @@ then the batched engine and the connectivity service:
     the service's hook_ops stay below a per-query recompute's. Printed:
     ms and host syncs of each tick, queries/s, p50/p99 query latency
     per tenant and global from the service's ``SLORecorder``, the
-    routes, K1-K3 launches.
+    routes, K1-K3 launches;
+
+then the multi-shard engine and the fleet (``repro_torch.core.
+distributed``, ``launch.mesh``, ``repro_torch.fleet``):
+
+20. ``Solver.open(g, mesh=make_mesh(k)).solve()`` on phase 3's graphs
+    for k = 1, 2 and 4 slots on the card. Gates: every slot on the card;
+    the plan is ``distributed`` (``sharded``); labels equal the scipy
+    oracle and ``pallas_fused``'s; at most 8 rounds; with the counts set
+    to 0 just before, K1 launched k x rounds and K3 rounds times, all
+    on its fixpoint body; slot 0's K1 scan equal to its plain version
+    at that slot's shapes (pi and sweeps). Printed: solve ms (CUDA
+    events, median of 3 after a warm-up), device ms by kernel
+    (``torch.profiler``), read backs a solve (sync debugging); at k = 4
+    slot 0's scan timed beside its plain version against its byte
+    bound. Then the ``cc-adaptive`` cell over 4 slots: its spec on the
+    four Table I shapes, and the usa-osm cell's step on the usa
+    stand-in's edges padded with (0, 0) rows to the spec's 58,000,000
+    rows at |V| 24,000,000: labels equal scipy's, K1 4 x rounds;
+21. the reference benchmark's ``fleet`` table at scale 1.0
+    (``benchmarks/run.py``): 512 tenants of 200,000 vertices with
+    100,000 base edges each, and the chain whale, on
+    ``FleetService(devices=[cuda:0] * 4)``; 6 ticks of 128 pairs a
+    ``same_component`` and 128 vertices a ``component_size`` request
+    per tenant, round-robin inserts of 24 edges, 128 whale pairs a tick.
+    One cut: the table's chain reaches vertex 4n = 800,000, one past its
+    ``whale_nodes``, so the whale is admitted with 800,001 vertices (the
+    shard threshold stays 800,000, so the tenants stay packed). Gates:
+    every slot owns 128 tenants; the whale is placed on the mesh; every
+    answer equals the single-device ``ConnectivityService`` baseline's
+    (holding every tenant) request by request; every tenant's and the
+    whale's final labels equal scipy's; K1 and K3 launched on the
+    fleet's main path (admission, preload, stream; counts set to 0 just
+    before). Printed: both paths' requests/s (tracing on for both),
+    query p50 / p99 from the merged SLO, syncs and event waits per tick
+    from a replay on a fresh fleet under sync debugging, K1 and K3
+    launches.
 
 It prints informative lines, then one JSON line of per-kernel numbers,
 then, as its last line, ``{"ok": true, "device": {...}}``. Without a
@@ -2259,6 +2295,394 @@ def service_phases(torch, np, dev, rows: dict, card: str) -> dict:
     return out
 
 
+# the multi-shard engine (phase 20): meshes of 1, 2 and 4 slots on the
+# card over phase 3's graphs, then the cc-adaptive cell
+DIST_SLOTS = (1, 2, 4)
+CELL_SLOTS = 4
+
+
+def distributed_phases(torch, np, dev, rows: dict, card: str, graphs: dict,
+                       oracles: dict) -> dict:
+    """Phase 20: ``Solver.open(g, mesh=make_mesh(k)).solve()`` on phase
+    3's graphs for k = 1, 2 and 4 slots, then the ``cc-adaptive`` cell
+    on the four Table I shapes and the usa-osm cell's step."""
+    from repro_torch.api import Solver
+    from repro_torch.configs import cc_graphs
+    from repro_torch.core import cc, distributed, rounds
+    from repro_torch.kernels.cc_fused import ops as cc_ops, ref as cc_ref
+    from repro_torch.kernels.multi_jump import ops as mj_ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    res, shard_rows = {}, []
+    total = {"cc_fused": 0, "multi_jump": 0}
+    for name, g in graphs.items():
+        fused = cc.solve_static(g, method="pallas_fused").labels
+        for k in DIST_SLOTS:
+            mesh = make_mesh(k)
+            check(all(d.type == dev.type for d in mesh.slot_devices()),
+                  f"the {k}-slot mesh landed off the card: {mesh}")
+            s = Solver.open(g, mesh=mesh)
+            plan = s.plan()
+            check((plan.backend, plan.reason) == ("distributed", "sharded"),
+                  f"{name} mesh session plans {plan.backend} "
+                  f"({plan.reason})")
+            # the main path, counts set to 0 just before, read just after
+            torch.cuda.synchronize()
+            cc_ops.KERNEL.launches = 0
+            mj_ops.KERNEL.launches = 0
+            out = s.solve()
+            torch.cuda.synchronize()
+            k1, roots = cc_ops.KERNEL.launches, mj_ops.ROOTS.launches
+            seq = mj_ops.SEQUENTIAL.launches
+            n_rounds = s.last_plan.artifacts["rounds"]
+            check(1 <= n_rounds <= distributed._MAX_ROUNDS,
+                  f"{name} k={k}: {n_rounds} rounds")
+            check(k1 == k * n_rounds, f"{name} k={k}: K1 launched {k1} "
+                                      f"times, {k} x {n_rounds} rounds")
+            check(roots == n_rounds and seq == 0,
+                  f"{name} k={k}: K3 launched {roots} times on the "
+                  f"fixpoint body and {seq} on the sequential one, "
+                  f"{n_rounds} rounds")
+            total["cc_fused"] += k1
+            total["multi_jump"] += roots
+            check(out.labels.device.type == dev.type
+                  and torch.equal(out.labels, fused),
+                  f"{name} k={k}: labels differ from pallas_fused's")
+            check(np.array_equal(out.labels.cpu().numpy(), oracles[name]),
+                  f"{name} k={k}: labels differ from the scipy oracle")
+            # slot 0's scan against the plain version at its shapes
+            sharded = g.shard(mesh)
+            fn = distributed.build_distributed_cc(sharded, mesh)
+            segs = rounds.pad_and_segment(sharded.shards[0], fn.plan)
+            counts = torch.full((segs.shape[0],), segs.shape[1],
+                                dtype=torch.int32, device=dev)
+            pi0 = torch.arange(g.num_nodes, dtype=torch.int32, device=dev)
+            got = cc_ops.fused_segment_scan(pi0, segs, counts)
+            want = cc_ref.ref_segment_scan(pi0, segs, counts)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(got[0], want[0]),
+                      max_abs_err(got[1], want[1]))
+            check(err == 0, f"{name} k={k}: slot 0's K1 scan differs from "
+                            "its plain version")
+            sweeps = int(got[1].sum())
+            entry = {"name": name, "slots": k, "rounds": n_rounds,
+                     "k1_launches": k1, "k3_launches": roots,
+                     "solve_ms": time_ms(torch, s.solve)}
+            per_kernel, device_total = device_kernels(torch, s.solve)
+            _, syncs = count_syncs(torch, s.solve)
+            entry.update(
+                device_ms=device_total,
+                k1_device_ms=kernel_share(per_kernel, "cc_fused_kernel"),
+                k3_device_ms=kernel_share(per_kernel,
+                                          "compress_roots_kernel"),
+                top_device_ms={k_: v["ms"] for k_, v in
+                               list(per_kernel.items())[:6]},
+                syncs=syncs)
+            if k == max(DIST_SLOTS):
+                n_edges = segs.shape[0] * segs.shape[1]
+                shard_rows.append(dict(
+                    shape=f"{name} slot 0 of {k}: V={g.num_nodes}, "
+                          f"S={segs.shape[0]}x{segs.shape[1]}, "
+                          f"{sweeps} sweeps",
+                    max_abs_err=err,
+                    ms=time_ms(torch, lambda: cc_ops.fused_segment_scan(
+                        pi0, segs, counts)),
+                    plain_ms=time_ms(torch, lambda: cc_ref.ref_segment_scan(
+                        pi0, segs, counts)),
+                    bound_ms=bound_ms(8 * n_edges
+                                      + 8 * g.num_nodes * (sweeps + 1))))
+            res[f"{name} k={k}"] = entry
+            print(f"distributed {name} k={k} ({card}): labels == scipy == "
+                  f"pallas_fused; slot 0's scan == plain; {json.dumps(entry)}")
+            del s, out, sharded, fn, segs, got, want
+    torch.cuda.empty_cache()
+
+    # the cc-adaptive cell: its spec on every Table I shape, then the
+    # usa-osm cell's step on the usa stand-in padded to the spec's rows
+    specs = {}
+    for shape in cc_graphs.SHAPES:
+        cell = steps.build_cell("cc-adaptive", shape,
+                                mesh=make_mesh(CELL_SLOTS))
+        specs[shape] = {"input": cc_graphs.input_specs(shape)["edges"][0],
+                        "num_nodes": cc_graphs.input_specs(shape)[
+                            "num_nodes"],
+                        "padded": cell.args[0][0]}
+    print(f"cc-adaptive cells over {CELL_SLOTS} slots: "
+          f"{json.dumps(specs)}")
+    cell = steps.build_cell("cc-adaptive", "usa-osm",
+                            mesh=make_mesh(CELL_SLOTS))
+    g = graphs["usa-osm"]
+    rows_in, v = specs["usa-osm"]["input"][0], specs["usa-osm"]["num_nodes"]
+    host = np.zeros((rows_in, 2), np.int32)
+    host[:g.true_edges] = g.edges[:g.true_edges].cpu().numpy()
+    torch.cuda.synchronize()
+    cc_ops.KERNEL.launches = 0
+    mj_ops.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    labels = cell.step(host)
+    torch.cuda.synchronize()
+    cell_ms = (time.perf_counter() - t0) * 1e3
+    n_rounds = cell.step.engine.last_rounds
+    check(cc_ops.KERNEL.launches == CELL_SLOTS * n_rounds
+          and mj_ops.ROOTS.launches == n_rounds,
+          f"cc-adaptive usa-osm: K1 {cc_ops.KERNEL.launches}, K3 "
+          f"{mj_ops.ROOTS.launches} launches for {n_rounds} rounds")
+    total["cc_fused"] += cc_ops.KERNEL.launches
+    total["multi_jump"] += mj_ops.ROOTS.launches
+    want = np.concatenate([oracles["usa-osm"],
+                           np.arange(g.num_nodes, v, dtype=np.int32)])
+    check(labels.device.type == dev.type
+          and np.array_equal(labels.cpu().numpy(), want),
+          "cc-adaptive usa-osm: labels differ from scipy's")
+    cell_res = {"rows": specs["usa-osm"]["padded"][0], "num_nodes": v,
+                "true_edges": g.true_edges, "rounds": n_rounds,
+                "step_ms": cell_ms}
+    print(f"cc-adaptive usa-osm step ({card}): labels == scipy; "
+          f"{json.dumps(cell_res)}")
+    del labels, host, cell
+    torch.cuda.empty_cache()
+    rows["cc_fused"]["launches_distributed"] = total["cc_fused"]
+    rows["cc_fused"]["distributed_shard_scan"] = shard_rows
+    rows["multi_jump"]["launches_distributed"] = total["multi_jump"]
+    out = {"distributed": res, "cc_cell": cell_res,
+           "distributed_s": time.perf_counter() - t_phase}
+    print(f"distributed: {out['distributed_s']:.1f} s")
+    return out
+
+
+# the fleet (phase 21): the reference benchmark's ``fleet`` table at
+# scale 1.0 (benchmarks/run.py) on four slots of the card
+FLEET_SLOTS = 4
+FLEET_TENANTS = 128                # per slot
+FLEET_N = 200_000                  # vertices a tenant
+FLEET_TICKS = 6
+FLEET_PAIRS = 128
+FLEET_INSERT = 24
+
+
+def fleet_schedule(np, names, n: int):
+    """The table's tenants and open-loop arrivals, drawn as it draws
+    them: (base edges per tenant, the whale's chain, ticks of (tenant,
+    kind, payload))."""
+    rng = np.random.default_rng(0)
+    base = {t: rng.integers(0, n, (n // 2, 2)).astype(np.int32)
+            for t in names}
+    chain = np.stack([np.arange(4 * n, dtype=np.int32),
+                      np.arange(1, 4 * n + 1, dtype=np.int32)], axis=1)
+    schedule = []
+    for tick in range(FLEET_TICKS):
+        arrivals = []
+        for i, t in enumerate(names):
+            if i % 256 == tick % 256:
+                arrivals.append((t, "insert", rng.integers(
+                    0, n, (FLEET_INSERT, 2)).astype(np.int32)))
+            arrivals.append((t, "same_component", rng.integers(
+                0, n, (FLEET_PAIRS, 2)).astype(np.int32)))
+            arrivals.append((t, "component_size", rng.integers(
+                0, n, (FLEET_PAIRS,)).astype(np.int32)))
+        # the table draws the whale's pairs below its whale_nodes = 4n
+        arrivals.append(("whale", "same_component", rng.integers(
+            0, 4 * n, (FLEET_PAIRS, 2)).astype(np.int32)))
+        schedule.append(arrivals)
+    return base, chain, schedule
+
+
+def fleet_phases(torch, np, dev, rows: dict, card: str) -> dict:
+    """Phase 21: the benchmark's fleet stream through ``FleetService``
+    over four slots of the card and through one ``ConnectivityService``
+    holding every tenant; answers cross-checked request by request."""
+    from repro_torch import obs
+    from repro_torch.connectivity.service import (QUERY_KINDS,
+                                                  ConnectivityService)
+    from repro_torch.core.unionfind import connected_components_scipy
+    from repro_torch.fleet import FleetService
+    from repro_torch.kernels.cc_fused import ops as cc_ops
+    from repro_torch.kernels.multi_jump import ops as mj_ops
+
+    t_phase = time.perf_counter()
+    n = FLEET_N
+    names = [f"t{i:04d}" for i in range(FLEET_TENANTS * FLEET_SLOTS)]
+    # the table's whale_nodes = max(1 << 11, 4n) = 4n, but its chain
+    # reaches vertex 4n: the one cut, the whale gets 4n + 1 vertices
+    # and the shard threshold stays 4n
+    threshold, whale_nodes = 4 * n, 4 * n + 1
+    base, chain, schedule = fleet_schedule(np, names, n)
+    n_requests = sum(len(a) for a in schedule)
+    probe = np.zeros((FLEET_PAIRS, 2), np.int32)
+    print(f"fleet: {len(names)} tenants of |V| {n}, |E| {n // 2} + a whale "
+          f"of |V| {whale_nodes}, |E| {chain.shape[0]}; {n_requests} "
+          f"requests in {FLEET_TICKS} ticks; generate "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    def preload(submit, submit_insert, run):
+        for t in names:
+            submit_insert(t, base[t])
+        submit_insert("whale", chain)
+        run()
+        for t in names:
+            submit(t, "same_component", probe)
+        submit("whale", "same_component", probe)
+        run()
+
+    def drive(submit, step, run, on_step=None):
+        """Replays the schedule; returns {(tenant, kind, i): i-th answer
+        of that kind}, the table's cross-check key."""
+        retired = []
+        for arrivals in schedule:
+            for t, kind, payload in arrivals:
+                submit(t, kind, payload)
+            retired.extend(step() if on_step is None else on_step(step))
+        retired.extend(run())
+        answers, seq = {}, {}
+        for r in retired:
+            check(r.error is None, f"fleet: {r.tenant} {r.kind} failed "
+                                   f"({r.error})")
+            if r.kind in QUERY_KINDS:
+                i = seq.get((r.tenant, r.kind), 0)
+                seq[(r.tenant, r.kind)] = i + 1
+                answers[(r.tenant, r.kind, i)] = np.asarray(r.result)
+        return answers
+
+    devices = [torch.device("cuda", 0) if dev.type == "cuda" else dev] \
+        * FLEET_SLOTS
+
+    def build_fleet():
+        fs = FleetService(devices, slots_per_device=1024, rebalance_every=0,
+                          shard_threshold=threshold)
+        for t in names:
+            fs.admit(t, n, expected_edges=n)
+        fs.admit("whale", whale_nodes, expected_edges=4 * n)
+        preload(fs.submit, fs.submit_insert, fs.run)
+        return fs
+
+    def build_single():
+        svc = ConnectivityService(slots=4096, device=devices[0])
+        for t in names:
+            svc.registry.create(t, n)
+        svc.registry.create("whale", whale_nodes)
+        preload(svc.submit, svc.submit_insert, svc.run)
+        return svc
+
+    # the fleet's main path (admission, preload, the stream), counts set
+    # to 0 just before and read just after; tracing on for the SLOs
+    torch.cuda.synchronize()
+    cc_ops.KERNEL.launches = 0
+    mj_ops.KERNEL.launches = 0
+    tracer = obs.enable(capacity=1 << 14)
+    tracer.reset()
+    try:
+        t0 = time.perf_counter()
+        fs = build_fleet()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fleet_answers = drive(fs.submit, fs.step, fs.run)
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - t0
+        launches = {"cc_fused": cc_ops.KERNEL.launches,
+                    "multi_jump": mj_ops.ROOTS.launches}
+        slo = fs.slo()
+    finally:
+        obs.disable()
+    owners = [sum(1 for t in names if fs.placement_of(t) == i)
+              for i in range(FLEET_SLOTS)]
+    check(owners == [FLEET_TENANTS] * FLEET_SLOTS,
+          f"fleet: tenants per slot {owners}")
+    check(fs.placement_of("whale") == "mesh", "fleet: the whale is packed")
+    whale = fs._sharded["whale"]
+    check(launches["cc_fused"] >= FLEET_SLOTS and launches["multi_jump"] >= 1,
+          f"fleet: the whale's mesh solve launched {launches}")
+    for i, t in enumerate(names):
+        acc = np.concatenate([base[t]] + [
+            p for a in schedule for (u, kind, p) in a
+            if u == t and kind == "insert"])
+        got = fs.shards[fs.placement_of(t)].registry.get(t).labels
+        check(np.array_equal(got.cpu().numpy(),
+                             connected_components_scipy(acc, n)),
+              f"fleet {t}: labels differ from scipy")
+    check(np.array_equal(whale.labels.cpu().numpy(),
+                         connected_components_scipy(chain, whale_nodes)),
+          "fleet whale: labels differ from scipy")
+    stats = fs.stats_summary()
+    del fs
+    torch.cuda.empty_cache()
+
+    tobs = obs.enable(capacity=1 << 14)
+    tobs.reset()
+    try:
+        t0 = time.perf_counter()
+        svc = build_single()
+        torch.cuda.synchronize()
+        single_build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        single_answers = drive(svc.submit, svc.step, svc.run)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        single_slo = svc.slo
+    finally:
+        obs.disable()
+    check(fleet_answers.keys() == single_answers.keys(),
+          "fleet and single-device answers cover different requests")
+    for key, a in fleet_answers.items():
+        check(np.array_equal(a, single_answers[key]),
+              f"fleet answer {key} differs from the single device's")
+    del svc
+    torch.cuda.empty_cache()
+
+    # the syncs: a replay on a fresh fleet, each tick under sync debugging
+    fs = build_fleet()
+    ticks = []
+
+    def counted(step):
+        before = fs.engine.stats["collects"]
+        done, syncs = count_syncs(torch, step)
+        ticks.append({"syncs": syncs,
+                      "event_waits": fs.engine.stats["collects"] - before})
+        return done
+
+    replay = drive(fs.submit, fs.step, fs.run, on_step=counted)
+    check(replay.keys() == fleet_answers.keys() and all(
+        np.array_equal(a, fleet_answers[k]) for k, a in replay.items()),
+        "fleet replay answers differ from the timed run's")
+    del fs
+    torch.cuda.empty_cache()
+
+    def q_ms(rec, q, kind):
+        return rec.percentile(q, kinds=(kind,)) * 1e3
+
+    res = {
+        "tenants": len(names) + 1, "slots": FLEET_SLOTS,
+        "requests": n_requests,
+        "fleet_build_s": build_s, "single_build_s": single_build_s,
+        "ms_fleet": fleet_s * 1e3, "ms_single_device": single_s * 1e3,
+        "requests_per_s_fleet": n_requests / fleet_s,
+        "requests_per_s_single": n_requests / single_s,
+        "p50_ms_same_component_fleet": q_ms(slo, 0.50, "same_component"),
+        "p99_ms_same_component_fleet": q_ms(slo, 0.99, "same_component"),
+        "p50_ms_component_size_fleet": q_ms(slo, 0.50, "component_size"),
+        "p99_ms_component_size_fleet": q_ms(slo, 0.99, "component_size"),
+        "p50_ms_same_component_single": q_ms(single_slo, 0.50,
+                                             "same_component"),
+        "p99_ms_same_component_single": q_ms(single_slo, 0.99,
+                                             "same_component"),
+        "tick_syncs": [t["syncs"] for t in ticks],
+        "tick_event_waits": [t["event_waits"] for t in ticks],
+        "launches": launches,
+        "whale_resolves": whale.resolves,
+        "engine": stats["engine"], "runner_cache": stats["runner_cache"],
+        "query_calls_fleet": sum(s["query_calls"] for s in stats["shards"]),
+    }
+    print(f"fleet ({card}): answers == single device request by request; "
+          f"every tenant's labels == scipy; {json.dumps(res)}")
+    rows["cc_fused"]["launches_fleet"] = launches["cc_fused"]
+    rows["multi_jump"]["launches_fleet"] = launches["multi_jump"]
+    out = {"fleet": res, "fleet_s": time.perf_counter() - t_phase}
+    print(f"fleet: {out['fleet_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     # the one torch.compile (phase 11's flex_attention yardstick) keeps
     # its caches in the checkout's build directory and compiles in-process
@@ -2671,6 +3095,13 @@ def main() -> int:
 
     # -- 19. the connectivity service ----------------------------------------
     e2e.update(service_phases(torch, np, dev, rows, card))
+
+    # -- 20. the multi-shard engine and the cc-adaptive cell ----------------
+    e2e.update(distributed_phases(torch, np, dev, rows, card, graphs,
+                                  oracles))
+
+    # -- 21. the fleet -------------------------------------------------------
+    e2e.update(fleet_phases(torch, np, dev, rows, card))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -4,11 +4,14 @@
     path, the spanning forest, the sampled engines, the queries, the
     incremental and fully-dynamic engines behind ``Solver.insert`` /
     ``delete``, the batched engine behind ``Solver.solve_batch``, the
-    ``Solver`` front door with its method policy, and the multi-tenant
-    registry and microbatching service with latency SLOs), with
+    ``Solver`` front door with its method policy, the multi-tenant
+    registry and microbatching service with latency SLOs, the
+    multi-shard engine behind ``Solver.open(g, mesh=...)`` and the
+    ``cc-adaptive`` cell, and the fleet over a mesh of devices), with
     hand-written Hopper kernels behind the ``pallas``, ``pallas_fused``,
-    ``sampled_fused`` and ``batched`` backends and the fused scoped
-    delete (``core``, ``graphs``, ``connectivity``, ``api``, ``obs``);
+    ``sampled_fused``, ``batched`` and ``distributed`` backends and the
+    fused scoped delete (``core``, ``graphs``, ``connectivity``,
+    ``api``, ``obs``, ``launch``, ``fleet``);
   * the recsys serving path: DCN-v2 ``serve`` and ``retrieval`` cells
     (``launch.steps.build_cell``, ``models.recsys``, ``configs``,
     ``data.pipeline``), with the embedding-bag and segment-reduce

@@ -12,9 +12,10 @@ segment-scan kernel, ``pallas`` the hook and multi_jump kernels, and
 batched entry; a kernel that does not build or launch raises.
 
 The streaming engines ``incremental`` and ``dynamic`` also give the
-``Solver`` its live state (``make_state``).
-
-Not registered yet: ``distributed`` (ROADMAP.md queue A, item A10).
+``Solver`` its live state (``make_state``). ``distributed`` runs a
+``mesh=`` session over the multi-shard engine (``core.distributed``):
+on CUDA slots the fused kernel scans each slot's edges and the
+multi_jump kernel compresses after each merge.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.api.registry import Capabilities, register_backend
 from repro_torch.core import batch as batch_mod, cc as cc_mod
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core.cc import CCResult
 from repro_torch.core.incremental import DynamicCC, IncrementalCC
 from repro_torch.core.rounds import WorkCounters
@@ -191,3 +193,27 @@ class _Dynamic:
 
     def run(self, plan: ExecutionPlan) -> CCResult:
         return _run_streaming(self, plan)
+
+
+# ---------------------------------------------------------------------------
+# Multi-shard engine (spatial segmentation across a mesh)
+# ---------------------------------------------------------------------------
+
+@register_backend("distributed",
+                  Capabilities(static=True, sharded=True,
+                               bit_exact_counters=False))
+def _distributed(plan: ExecutionPlan) -> CCResult:
+    """The multi-shard engine over the plan's mesh. Labels only: the
+    per-slot counters are not folded, so the counters are zeros. The
+    merge rounds run land in ``plan.artifacts["rounds"]``."""
+    mesh = plan.opts.get("mesh")
+    if mesh is None:
+        raise ValueError("the distributed backend needs a mesh "
+                         "(Solver.open(graph, mesh=...))")
+    axis_names = plan.opts.get("axis_names", ("data",))
+    graph = plan.graph.shard(mesh, axis_names)
+    fn = dist_mod.build_distributed_cc(graph, mesh, axis_names=axis_names,
+                                       lift_steps=plan.lift_steps)
+    labels = fn(graph)
+    plan.artifacts["rounds"] = fn.last_rounds
+    return CCResult(labels, WorkCounters.zeros(labels.device))

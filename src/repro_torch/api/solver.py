@@ -23,14 +23,13 @@
     runs.
 
 One-shot: ``repro_torch.api.solve(graph, ...) -> CCResult``; fleets:
-``Solver.solve_batch(graphs)``.
-
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
-queue A item: ``mesh=`` sessions (A10).
+``Solver.solve_batch(graphs)``; a ``mesh=`` session (a
+``repro_torch.launch.mesh.Mesh``) plans the ``distributed`` backend,
+the multi-shard engine.
 
 The session lives on one device: a host graph goes to ``device`` (CUDA
-when None; with no CUDA it raises), a ``DeviceGraph`` or tensor stays
-where it is.
+when None, or slot 0's device of a ``mesh``; with no CUDA it raises), a
+``DeviceGraph`` or tensor stays where it is.
 """
 from __future__ import annotations
 
@@ -55,21 +54,19 @@ _PLANNABLE = tuple(ALL_METHODS) + ("pallas", "hostloop")
 _KNOWN_OPTS = frozenset({"hostloop_method"})
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A, item {item})")
-
-
 class Solver:
     """A connectivity session over one vertex set. Use ``open()``."""
 
     def __init__(self, graph: DeviceGraph | None, num_nodes: int, *,
                  lift_steps: int = 2, num_segments: int | None = None,
                  policy_cache: policy.AutotuneCache | None = None,
+                 mesh=None, axis_names=("data",),
                  scan_method: str | None = None,
                  delete_route: str | None = None,
                  name: str = "solver", device=None):
         self._graph = graph            # the opened graph (None: empty)
+        self.mesh = mesh
+        self.axis_names = tuple(axis_names)
         self._device = graph.device if graph is not None \
             else resolve_device(device)
         self.num_nodes = int(num_nodes)
@@ -102,7 +99,8 @@ class Solver:
     @classmethod
     def open(cls, graph=None, num_nodes: int | None = None, *,
              lift_steps: int = 2, num_segments: int | None = None,
-             mesh=None, policy_cache: policy.AutotuneCache | None = None,
+             mesh=None, axis_names=("data",),
+             policy_cache: policy.AutotuneCache | None = None,
              scan_method: str | None = None,
              delete_route: str | None = None,
              name: str = "solver", device=None) -> "Solver":
@@ -115,7 +113,9 @@ class Solver:
           num_nodes: |V| for raw arrays and empty sessions.
           lift_steps: bounded root-chase depth (all engines).
           num_segments: override the s = 2|E|/|V| heuristic.
-          mesh: not ported yet (raises).
+          mesh: a ``repro_torch.launch.mesh.Mesh``: plans default to
+            the ``distributed`` backend over ``axis_names``, and host
+            data goes to slot 0's device unless ``device`` is given.
           policy_cache: autotune cache for ``method="auto"`` routing
             (None: the process-wide default cache).
           scan_method: force the dynamic engine's scoped-scan backend
@@ -126,8 +126,8 @@ class Solver:
           name: label for introspection.
           device: where host data goes (CUDA when None).
         """
-        if mesh is not None:
-            raise _not_ported("Solver.open(mesh=...)", "A10")
+        if device is None and mesh is not None:
+            device = mesh.slot_devices(axis_names)[0]
         if graph is None:
             if num_nodes is None:
                 raise ValueError("Solver.open() needs a graph or "
@@ -138,6 +138,7 @@ class Solver:
                                 num_segments=num_segments, device=device)
             n = g.num_nodes
         return cls(g, n, lift_steps=lift_steps, num_segments=num_segments,
+                   mesh=mesh, axis_names=axis_names,
                    policy_cache=policy_cache, scan_method=scan_method,
                    delete_route=delete_route, name=name, device=device)
 
@@ -202,14 +203,21 @@ class Solver:
                 raise ValueError(
                     f"backend {backend!r} runs fleets, not single "
                     "graphs — use Solver.solve_batch(graphs)")
+            if caps.sharded and self.mesh is None:
+                raise ValueError(
+                    f"backend {backend!r} needs a mesh — open the "
+                    "session with Solver.open(graph, mesh=...)")
             chosen, reason = backend, "forced"
         elif method not in (None, "auto"):
+            # a forced method wins over the mesh default
             if method not in _PLANNABLE:
                 raise ValueError(f"unknown method {method!r}; choose "
                                  f"from {('auto',) + _PLANNABLE} or "
                                  "force a backend= from "
                                  "repro_torch.api.BACKENDS")
             chosen, reason = method, "forced"
+        elif self.mesh is not None:
+            chosen, reason = "distributed", "sharded"
         else:
             # the skew feature was measured once at host ingest (None for
             # edges that arrived as a tensor): it sends skewed graphs at
@@ -227,7 +235,10 @@ class Solver:
             backend=chosen, reason=reason, num_nodes=n, num_edges=e,
             bucket=bucket_shape(n, e), segmentation=seg,
             lift_steps=self.lift_steps, num_segments=num_segments,
-            graph=g, opts=dict(opts), predicted=predicted)
+            graph=g,
+            opts={"mesh": self.mesh, "axis_names": self.axis_names,
+                  **opts},
+            predicted=predicted)
 
     # -- static solve --------------------------------------------------------
 
@@ -536,11 +547,12 @@ class Solver:
 
 def solve(graph, num_nodes: int | None = None, method: str = "auto", *,
           backend: str | None = None, num_segments: int | None = None,
-          lift_steps: int = 2, mesh=None,
+          lift_steps: int = 2, mesh=None, axis_names=("data",),
           policy_cache: policy.AutotuneCache | None = None, device=None,
           **opts) -> CCResult:
     """One-shot facade solve: ``Solver.open(...).solve(...)``."""
     return Solver.open(graph, num_nodes, lift_steps=lift_steps,
                        num_segments=num_segments, mesh=mesh,
-                       policy_cache=policy_cache, device=device).solve(
+                       axis_names=axis_names, policy_cache=policy_cache,
+                       device=device).solve(
         method, backend=backend, **opts)

@@ -15,6 +15,11 @@ static solves consume:
 Padding invariant: rows past ``true_edges`` are (0, 0) self loops —
 hook no-ops for every engine — and are never billed.
 
+``shard(mesh, axis_names)`` splits a graph's rows over a ``Mesh``'s
+slots, one contiguous tensor per slot on that slot's device
+(``shards``): what the multi-shard engine (``core.distributed``)
+consumes.
+
 An ``EdgeLog`` is the fully-dynamic engine's edge set: an append /
 tombstone log on the device whose capacity grows by powers of two
 (``append``, ``delete``, ``view``, ``compact``).
@@ -33,6 +38,7 @@ from repro_torch.core.segmentation import (SegmentationPlan,
                                            plan_segmentation)
 
 _MIN_PAD_ROWS = 8
+_INT32_LIMIT = 2**31
 
 
 def next_pow2(x: int) -> int:
@@ -50,6 +56,16 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass "
                            "device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def check_shard_extent(rows: int, num_nodes: int) -> None:
+    """Raise ``ValueError`` unless ``rows`` edge rows and ``num_nodes``
+    vertices index within int32: the engines address both with 32-bit
+    ids and must not wrap around."""
+    for what, n in (("rows", rows), ("|V|", num_nodes)):
+        if n >= _INT32_LIMIT:
+            raise ValueError(f"{what} = {n} does not fit int32: the "
+                             "sharded graph is too large")
 
 
 def validate_edge_bounds(edges: np.ndarray, num_nodes: int) -> None:
@@ -79,7 +95,7 @@ class DeviceGraph:
     def __init__(self, edges: torch.Tensor, num_nodes: int,
                  true_edges: int, plan: SegmentationPlan,
                  name: str = "graph", degree_skew: float | None = None,
-                 count_on_device: bool = False):
+                 count_on_device: bool = False, shards: tuple | None = None):
         self.edges = edges                     # int32 [E, 2]
         self.num_nodes = int(num_nodes)
         self.true_edges = int(true_edges)
@@ -92,6 +108,9 @@ class DeviceGraph:
         # the device only, so its engines run even over zero true edges
         # (and bill their fixed rounds) instead of returning early
         self.count_on_device = count_on_device
+        # ``shard()``'s split of ``edges``: one [E / n, 2] tensor per mesh
+        # slot, on that slot's device, in slot order (None: unsharded)
+        self.shards = shards
 
     # -- constructors ------------------------------------------------------
 
@@ -201,6 +220,26 @@ class DeviceGraph:
         ``min_rows``)."""
         e = int(self.edges.shape[0])
         return self.pad_rows(next_pow2(max(e, min_rows)))
+
+    def shard(self, mesh, axis_names=("data",)) -> "DeviceGraph":
+        """Split the edge list over the mesh's ``axis_names``: pad with
+        (0, 0) no-ops to ``per * n`` rows (``per = max(1, ceil(E / n))``,
+        ``n`` the slot count) so that any row count splits evenly, then
+        give each slot its contiguous ``per`` rows on its own device
+        (``shards``; a slot on the graph's device gets a view, not a
+        copy). ``edges`` stays the padded whole on the graph's device."""
+        slots = mesh.slot_devices(axis_names)
+        n = len(slots)
+        per = max(1, -(-int(self.edges.shape[0]) // n))
+        check_shard_extent(per * n, self.num_nodes)
+        padded = self.pad_rows(per * n)
+        parts = tuple(padded.edges[i * per:(i + 1) * per].to(d)
+                      for i, d in enumerate(slots))
+        return DeviceGraph(padded.edges, self.num_nodes, padded.true_edges,
+                           padded.plan, name=self.name,
+                           degree_skew=self.degree_skew,
+                           count_on_device=self.count_on_device,
+                           shards=parts)
 
     @classmethod
     def concat(cls, graphs, name: str | None = None) -> "DeviceGraph":

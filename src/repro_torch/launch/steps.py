@@ -1,5 +1,6 @@
 """Per-(arch × shape) step builders, the port of ``repro.launch.steps``
-for the serving steps of the recsys and LM families.
+for the serving steps of the recsys and LM families and the paper's
+multi-shard CC on the Table I graphs.
 
 ``build_cell(arch_id, shape, device=...)`` returns a ``Cell``: the step
 callable and the ``(shape, dtype)`` specs of its arguments. Building a
@@ -12,12 +13,18 @@ moves the inputs to the cell's device and runs there:
                     cache): the prompt pass over ``tokens`` [B, S];
   * ``decode``    — ``step(params, tokens, positions, cache)`` ->
                     (logits [B, 1, V], cache): one token per request at
-                    ``positions`` [B].
+                    ``positions`` [B];
+  * ``cc``        — ``step(edges)`` -> labels [V]: the multi-shard
+                    engine (``core.distributed``) over the cell's mesh on
+                    host edges of up to the spec's rows, padded with
+                    (0, 0) no-ops to ``per * n_shards`` rows.
 
 The cache is a device tree (``transformer.init_cache``), updated in
 place.
 
-No shardings and no donation: the port runs on one device.
+No shardings and no donation: the model cells run on one device; the
+``cc`` cell splits its edges over a ``launch.mesh.Mesh`` of slots (one
+slot on the device when no mesh is given).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.core.segmentation import plan_segmentation
 from repro_torch.graphs.device import resolve_device
 from repro_torch.models import recsys
 from repro_torch.models import transformer as T
@@ -105,12 +113,51 @@ def _build_lm(arch_id: str, shape: str, device: torch.device) -> Cell:
                       specs["cache"]))
 
 
-def build_cell(arch_id: str, shape: str, *, device=None) -> Cell:
+def _build_cc(shape: str, mesh) -> Cell:
+    """The paper's multi-shard CC on a Table I graph (full size). The
+    engine is built on a ``meta`` edge tensor: nothing is allocated
+    until the step runs."""
+    from repro_torch.configs import cc_graphs
+    from repro_torch.core.distributed import build_distributed_cc
+    from repro_torch.graphs.device import DeviceGraph
+
+    specs = cc_graphs.input_specs(shape)
+    n_shards = len(mesh.slot_devices(("data",)))
+    e, v = specs["edges"][0][0], specs["num_nodes"]
+    per = (e + n_shards - 1) // n_shards
+    rows = per * n_shards
+    abstract = DeviceGraph(
+        torch.empty((rows, 2), dtype=torch.int32, device="meta"), v, e,
+        plan_segmentation(rows, v))
+    fn = build_distributed_cc(abstract, mesh, axis_names=("data",))
+    slot0 = fn.slots[0]
+
+    def step(edges):
+        edges = torch.as_tensor(np.asarray(edges, np.int32)).reshape(-1, 2)
+        if edges.shape[0] > rows:
+            raise ValueError(f"{shape}: {edges.shape[0]} edges exceed the "
+                             f"cell's {rows} rows")
+        padded = torch.zeros((rows, 2), dtype=torch.int32, device=slot0)
+        padded[:edges.shape[0]] = edges.to(slot0)
+        return fn.on_edges(padded)
+    step.engine = fn
+    return Cell("cc-adaptive", shape, "cc", step,
+                args=(((rows, 2), torch.int32),))
+
+
+def build_cell(arch_id: str, shape: str, *, device=None, mesh=None) -> Cell:
     """The cell of ``(arch_id, shape)`` on ``device`` (CUDA unless
-    given; raises without CUDA unless ``device="cpu"``)."""
+    given; raises without CUDA unless ``device="cpu"``). ``mesh`` (a
+    ``launch.mesh.Mesh``) is where the ``cc-adaptive`` cell splits its
+    edges; the model cells take none."""
     if arch_id == "cc-adaptive":
-        raise NotImplementedError(
-            "the distributed CC cell is not ported yet (ROADMAP A10)")
+        if mesh is None:
+            from repro_torch.launch.mesh import Mesh
+            mesh = Mesh([resolve_device(device)], ("data",))
+        return _build_cc(shape, mesh)
+    if mesh is not None:
+        raise ValueError(f"{arch_id} runs on one device; mesh= is for the "
+                         "cc-adaptive cell")
     device = resolve_device(device)
     # get_arch raises for the ids that are not ported (MLA, MoE, GNN)
     if get_arch(arch_id).FAMILY == "lm":

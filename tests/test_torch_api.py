@@ -4,8 +4,8 @@ backend for the same reason, and ``solve()`` giving equal labels and
 WorkCounters on every registered backend, over the named corpus and the
 Table I stand-ins at scale 0.002 (a fresh in-memory autotune cache on
 each side); ``solve_static(method="auto")``; the autotune cache's keys
-and file round trip; the queries through the session; the stubs of what
-is not ported yet. Integer work: the tolerance is 0."""
+and file round trip; the queries through the session; the session
+features of the later slices. Integer work: the tolerance is 0."""
 import json
 
 import numpy as np
@@ -20,8 +20,9 @@ from repro.graphs.generators import table1_scaled
 import repro_torch
 from repro_torch.connectivity import policy as tpolicy
 from repro_torch.core import cc as tcc
+from repro_torch.launch.mesh import make_mesh
 
-NOT_PORTED = {"distributed"}
+NOT_PORTED = set()
 GRAPHS = [(name, n, e) for name, n, e in corpus()] + [
     (f"{name}@0.002", g.num_nodes, g.edges) for name, g in
     ((name, table1_scaled(name, scale=0.002, seed=1))
@@ -50,8 +51,9 @@ def test_capability_matrix_matches_reference():
         assert caps == want[name], name
     assert repro_torch.available_backends() == sorted(got)
     assert isinstance(repro_torch.get_backend("sampled"), repro_torch.Backend)
-    with pytest.raises(KeyError, match="distributed"):
-        repro_torch.get_backend("distributed")
+    assert repro_torch.get_backend("distributed").capabilities.sharded
+    with pytest.raises(KeyError, match="no-such-backend"):
+        repro_torch.get_backend("no-such-backend")
 
 
 @pytest.mark.parametrize("name,n,edges", GRAPHS, ids=GIDS)
@@ -63,8 +65,10 @@ def test_solver_plans_and_solves_match_reference(name, n, edges):
     assert tp.explain() == jp.explain()
     assert tp.trace_tags() == jp.trace_tags()
     for backend in repro_torch.available_backends():
-        if repro_torch.get_backend(backend).capabilities.batched:
-            # a fleet backend: both sessions refuse it, alike
+        caps = repro_torch.get_backend(backend).capabilities
+        if caps.batched or caps.sharded:
+            # a fleet backend, or one that needs a mesh these sessions
+            # lack: both sessions refuse it, alike
             with pytest.raises(ValueError) as jerr:
                 j.solve(backend=backend)
             with pytest.raises(ValueError) as terr:
@@ -232,18 +236,19 @@ def test_session_state_of_a_static_session():
     (lambda s: s.delete([[0, 1]]), "A6"),
     (lambda s: s.enable_metrics(), "A6"),
     (lambda s: s.metrics_summary(), "A6"),
-    (lambda s: repro_torch.Solver.open(s.graph(), mesh=object()), "A10"),
+    (lambda s: repro_torch.Solver.open(
+        s.graph(), mesh=make_mesh(2, device="cpu")).solve(), "A10"),
 ])
 def test_unported_session_features_raise(call, item):
-    """What is still to be ported raises, naming its ROADMAP.md item; the
-    A6 features (the mutation path and its metrics) run now."""
+    """The session features of the later slices run now, none raises:
+    the A6 features (the mutation path and its metrics) and the A10
+    ``mesh=`` session (the multi-shard engine)."""
     s = repro_torch.Solver.open([[0, 1], [1, 2]], 4, device="cpu")
+    out = call(s)
     if item == "A6":
-        call(s)
         assert s.state is not None and s.stats["inserts"] >= 1
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-        call(s)
+    np.testing.assert_array_equal(out.labels.numpy(), [0, 0, 0, 3])
 
 
 def test_solve_batch_runs_and_batched_backend_is_fleet_only():

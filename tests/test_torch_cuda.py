@@ -496,6 +496,10 @@ def test_solver_on_card_matches_cpu(dev, name):
             with pytest.raises(ValueError, match="runs fleets"):
                 s.solve(backend=backend)
             continue
+        if backend == "distributed":    # needs a mesh session
+            with pytest.raises(ValueError, match="needs a mesh"):
+                s.solve(backend=backend)
+            continue
         hook_ops.KERNEL.launches = 0
         got = s.solve(backend=backend)
         torch.cuda.synchronize()
@@ -937,3 +941,61 @@ def test_dynamic_stream_on_card_matches_cpu(dev, name, route):
     ref = connected_components_scipy(
         survivors.edges[:survivors.true_edges].cpu().numpy(), g.num_nodes)
     np.testing.assert_array_equal(s.labels.cpu().numpy(), ref)
+
+
+# -- the multi-shard engine and the fleet (A10) ------------------------------
+
+@pytest.mark.parametrize("name", ("usa-osm", "kron-logn21"))
+def test_distributed_two_slots_on_card_match_pallas_fused(dev, name):
+    """A 2-slot mesh on the card: labels equal ``pallas_fused``'s and the
+    oracle's; K1 launches twice a round (once a slot) and K3's fixpoint
+    body once a round."""
+    from repro_torch.api import Solver
+    from repro_torch.core import distributed
+    from repro_torch.launch.mesh import make_mesh
+    g = DeviceGraph.from_host(table1_scaled(name, scale=0.002, seed=1),
+                              device=dev)
+    mesh = make_mesh(2)
+    s = Solver.open(g, mesh=mesh)
+    assert s.plan().backend == "distributed"
+    res = s.solve()
+    sharded = g.shard(mesh)
+    fn = distributed.build_distributed_cc(sharded, mesh)
+    for k in (cc_ops.KERNEL, mj_ops.ROOTS, mj_ops.SEQUENTIAL):
+        k.launches = 0
+    labels = fn(sharded)
+    torch.cuda.synchronize()
+    assert 1 <= fn.last_rounds <= 8
+    assert cc_ops.KERNEL.launches == 2 * fn.last_rounds
+    assert mj_ops.ROOTS.launches == fn.last_rounds
+    assert mj_ops.SEQUENTIAL.launches == 0
+    assert torch.equal(labels, res.labels)
+    fused = cc.solve_static(g, method="pallas_fused")
+    assert res.labels.device.type == "cuda"
+    assert torch.equal(res.labels, fused.labels)
+    np.testing.assert_array_equal(
+        res.labels.cpu().numpy(),
+        connected_components_scipy(g.edges.cpu().numpy(), g.num_nodes))
+
+
+def test_fleet_defaults_to_cuda_devices(dev):
+    from repro_torch.fleet import FleetService
+    fs = FleetService(rebalance_every=0, shard_threshold=1 << 11)
+    assert fs.devices == [torch.device("cuda", i)
+                          for i in range(torch.cuda.device_count())]
+    assert all(s.device.type == "cuda" for s in fs.shards)
+    fs.admit("t", 32)
+    fs.admit("whale", 1 << 11, expected_edges=1 << 12)
+    fs.submit_insert("t", [[0, 1], [1, 2]])
+    fs.submit_insert("whale", [[0, 1], [5, 6]])
+    fs.run()
+    fs.submit_query("t", "same_component", [[0, 2], [0, 3]])
+    fs.submit_query("t", "component_size", [0, 3])
+    fs.submit_query("whale", "same_component", [[0, 1], [0, 5]])
+    done = {(r.tenant, r.kind): r for r in fs.run()}
+    assert all(r.error is None for r in done.values())
+    np.testing.assert_array_equal(done["t", "same_component"].result,
+                                  [True, False])
+    np.testing.assert_array_equal(done["t", "component_size"].result, [3, 1])
+    np.testing.assert_array_equal(done["whale", "same_component"].result,
+                                  [True, False])

@@ -47,6 +47,8 @@ def test_import_loads_no_jax_and_no_reference():
             "import repro_torch.core.incremental, repro_torch.obs.metrics\n"
             "import repro_torch.connectivity.registry, repro_torch.obs.slo\n"
             "import repro_torch.connectivity.service, repro_torch.obs.__main__\n"
+            "import repro_torch.core.distributed, repro_torch.launch.mesh\n"
+            "import repro_torch.fleet, repro_torch.configs.cc_graphs\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
