@@ -241,7 +241,42 @@ distributed``, ``launch.mesh``, ``repro_torch.fleet``):
     before). Printed: both paths' requests/s (tracing on for both),
     query p50 / p99 from the merged SLO, syncs and event waits per tick
     from a replay on a fresh fleet under sync debugging, K1 and K3
-    launches.
+    launches;
+
+then the MLA and MoE LMs at full width (random weights from seed 0, the
+norm weights N(1, 0.1²) from seed 1), one model on the card at a time:
+
+22. minicpm3-4b at full depth (62 layers, d_model 2560, 40 heads, MLA:
+    q / k head dim 96, v 64; 4,262,025,728 parameters, 8.52 GB bf16).
+    First K6 on the real layer-0 q, k, v of an 8192-token prefill as the
+    model hands them over, zero-padded to d = 128 (the Hopper body):
+    within ``ref.p_rounding_bound`` / ``p_rounding_norm_bound`` of its
+    plain version (by groups of kv heads), the padded columns 0, the
+    plain version of the unpadded tensors equal to the padded one's
+    first 64 columns within f32 1e-5; timed beside the plain version,
+    the route (pads, kernel, slice) and
+    ``F.scaled_dot_product_attention`` on the unpadded shapes, its bound
+    given for the padded and for the true work. Then phase 12's six
+    requests through ``Engine(slots=4, prompt_buf=8192,
+    cache_buf=8256)``, K6's launches counted (62 per prefill, all on the
+    Hopper body), every token within 8 bf16 ulps of the teacher-forced
+    ``forward`` argmax; TTFT, decode ms/step, tokens/s, peak memory and
+    the 8192-token prefill's device ms by op (``torch.profiler``);
+23. phi3.5-moe (24 of 32 layers, 31,471,636,480 parameters, 62.9 GB)
+    and grok-1 (6 of 64 layers, 31,130,499,072 parameters, 62.3 GB):
+    the same K6 check at their grouping (32 / 8 and 48 / 8 heads of 128)
+    beside SDPA, then 4 requests (prompts 17, 1000, 4097, 8192) through
+    the same engine with the same gates (K6 launches = layers x
+    prefills). The engine's routing (experts and keep mask of every
+    token) is recorded on the device during the run, and the
+    teacher-forced ``forward`` takes it: capacity depends on the batch a
+    token was routed in (cap = 1 at a 4-slot decode step, padding rows
+    of a prefill take capacity), which a single forward of the request
+    does not reproduce. The capacity drops of one prefill (the 17-token
+    prompt, padded to 8192) equal a numpy recount from the same router
+    probabilities, layer by layer, and the experts equal numpy's stable
+    top-2. The prefill's device ms by op: the expert ``bmm``s, the
+    dispatch / combine index ops, K6.
 
 It prints informative lines, then one JSON line of per-kernel numbers,
 then, as its last line, ``{"ok": true, "device": {...}}``. Without a
@@ -856,6 +891,66 @@ def wgmma_build_report(torch, kernels) -> dict:
     return report
 
 
+def attention_check(fa_ref, got, want, what: str, bound=None,
+                    norm_bound=None) -> dict:
+    """Within ``bound`` at every element and within ``norm_bound`` in
+    the 2-norm (the Hopper body's ``p_rounding_bound`` and
+    ``p_rounding_norm_bound``) or, where none is given, within one bf16
+    ulp of plain plus the fp32 order term 1e-5 (the FMA body)."""
+    err = (got.float() - want.float()).abs()
+    u = err / fa_ref.ulp_bf16(want)
+    gate = fa_ref.ulp_bf16(want) + 1e-5 if bound is None else bound
+    res = dict(max_abs_err=float(err.max()), max_ulp=float(u.max()),
+               n_over_1_ulp=int((u > 1).sum()),
+               gate="1 bf16 ulp + 1e-5" if bound is None else
+               "p_rounding_bound and p_rounding_norm_bound",
+               max_err_over_gate=float((err / gate).max()),
+               finite=bool(got.isfinite().all()))
+    ok = bool((err <= gate).all()) and res["finite"]
+    if norm_bound is not None:
+        res["norm_err_over_gate"] = float(err.norm()) / norm_bound
+        ok = ok and res["norm_err_over_gate"] <= 1.0
+    check(ok, f"flash_attention {what}: {res}")
+    return res
+
+
+def prefill_attention_inputs(torch, np, dev, cfg, params, n_layers: int
+                             ) -> list:
+    """The (q, k, v, keywords) that the first ``n_layers`` layers of an
+    ``LM_PROMPT_BUF``-token prefill (seed 1 tokens) hand the flash
+    kernel, as the model hands them over (MLA's already padded)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, LM_PROMPT_BUF)
+    toks = torch.from_numpy(prompt.astype(np.int32)).to(dev)[None]
+    captured = []
+    launch = L.flash_attention
+
+    def capture(q, k, v, **kw):
+        captured.append((q, k, v, kw))
+        return launch(q, k, v, **kw)
+
+    L.flash_attention = capture
+    try:
+        T.forward_hidden({**params, "layers": params["layers"][:n_layers]},
+                         toks, cfg)
+    finally:
+        L.flash_attention = launch
+    check(len(captured) == n_layers, f"{cfg.name}: {n_layers} layers made "
+                                     f"{len(captured)} flash calls")
+    return captured
+
+
+def argmax_margin(torch, fa_ref, logits, out):
+    """How far below each row's largest logit the emitted token's logit
+    lies, in bf16 ulps of the row's largest |logit|."""
+    top = logits.max(dim=-1).values
+    chosen = logits[torch.arange(len(out), device=logits.device),
+                    torch.from_numpy(out).long().to(logits.device)]
+    return (top - chosen) / fa_ref.ulp_bf16(logits.abs().max(dim=-1).values)
+
+
 def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
     """Phases 11-13: gemma2-2b serving at full width. Adds the
     ``flash_attention`` row to ``rows``; returns the serving numbers."""
@@ -865,7 +960,6 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
     from repro_torch.configs import gemma2_2b
     from repro_torch.kernels.flash_attention import ops as fa_ops, \
         ref as fa_ref
-    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serving import engine as E
 
@@ -880,29 +974,6 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
 
     def ulps(got, want):
         return (got.float() - want.float()).abs() / fa_ref.ulp_bf16(want)
-
-    def check_close(got, want, what: str, bound=None,
-                    norm_bound=None) -> dict:
-        """Within ``bound`` at every element and within ``norm_bound`` in
-        the 2-norm (the Hopper body's ``p_rounding_bound`` and
-        ``p_rounding_norm_bound``) or, where none is given, within one
-        bf16 ulp of plain plus the fp32 order term 1e-5 (the FMA
-        body)."""
-        err = (got.float() - want.float()).abs()
-        u = ulps(got, want)
-        gate = fa_ref.ulp_bf16(want) + 1e-5 if bound is None else bound
-        res = dict(max_abs_err=float(err.max()), max_ulp=float(u.max()),
-                   n_over_1_ulp=int((u > 1).sum()),
-                   gate="1 bf16 ulp + 1e-5" if bound is None else
-                   "p_rounding_bound and p_rounding_norm_bound",
-                   max_err_over_gate=float((err / gate).max()),
-                   finite=bool(got.isfinite().all()))
-        ok = bool((err <= gate).all()) and res["finite"]
-        if norm_bound is not None:
-            res["norm_err_over_gate"] = float(err.norm()) / norm_bound
-            ok = ok and res["norm_err_over_gate"] <= 1.0
-        check(ok, f"flash_attention {what}: {res}")
-        return res
 
     def flex_library(q, k, v, scale: float, window: int, softcap: float):
         """One call of ``flex_attention`` (compiled, not used by the
@@ -949,21 +1020,7 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
         flex_attention
     flex = torch.compile(flex_attention, dynamic=False)
     wgmma_build = wgmma_build_report(torch, kernels)
-    prompt = np.random.default_rng(1).integers(0, cfg.vocab, LM_PROMPT_BUF)
-    toks = torch.from_numpy(prompt.astype(np.int32)).to(dev)[None]
-    captured = []
-    launch = L.flash_attention
-
-    def capture(q, k, v, **kw):
-        captured.append((q, k, v, kw))
-        return launch(q, k, v, **kw)
-
-    L.flash_attention = capture
-    try:
-        T.forward_hidden({**params, "layers": params["layers"][:2]}, toks,
-                         cfg)
-    finally:
-        L.flash_attention = launch
+    captured = prefill_attention_inputs(torch, np, dev, cfg, params, 2)
     check([c[3]["window"] for c in captured] == [cfg.window, 0],
           "layers 0 and 1 are not the local and global layer")
     fa = {}
@@ -982,7 +1039,8 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
                   f"window {kw['window']}, softcap {kw['softcap']}, layer "
                   f"{0 if kw['window'] else 1} of a {LM_PROMPT_BUF}-token "
                   "prefill",
-            **check_close(got, want, name, bound, norm_bound), ms=ms,
+            **attention_check(fa_ref, got, want, name, bound, norm_bound),
+            ms=ms,
             plain_ms=time_ms(torch, lambda: fa_ref.ref_flash_attention(
                 q, k, v, **pkw)),
             bound_ms=b_ms, bound_by=by, **rates(q, kw["window"], ms, b_ms))
@@ -1007,7 +1065,8 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
     ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v))
     fa["global_8192_nocap"] = dict(
         shape="global_8192_nocap: layer-1 q, k, v, window 0, softcap 0",
-        **check_close(got, want, "global_8192_nocap", bound, norm_bound),
+        **attention_check(fa_ref, got, want, "global_8192_nocap", bound,
+                          norm_bound),
         library_max_ulp=float(ulps(lib, want).max()),
         library_max_err_over_gate=float(((lib.float() - want.float()).abs()
                                          / bound).max()),
@@ -1052,7 +1111,8 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
         shape=f"qwen_global_8192: q {tuple(qq.shape)} k {tuple(kq.shape)} "
               "bf16 (random), window 0, softcap 0; the plain version one kv "
               "head's group at a time",
-        **check_close(got, want, "qwen_global_8192", bound, norm_bound),
+        **attention_check(fa_ref, got, want, "qwen_global_8192", bound,
+                          norm_bound),
         ms=ms,
         plain_ms=time_ms(torch, lambda: by_group(
             fa_ref.ref_flash_attention)),
@@ -1090,7 +1150,7 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
         want = fa_ref.ref_flash_attention(qs, ks, vs, sm_scale=32 ** -0.5,
                                           window=window, softcap=cap)
         torch.cuda.synchronize()
-        res = check_close(got, want, f"bf16 d32 window {window}")
+        res = attention_check(fa_ref, got, want, f"bf16 d32 window {window}")
         print(f"flash_attention bf16 [2, 300, 8/4, 32] window {window} "
               f"(body {body(qs)}): {res}")
     del q32, k32, v32, qs, ks, vs
@@ -1118,8 +1178,8 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
             shape=f"{name}: q {tuple(ql.shape)} k {tuple(kl.shape)} bf16 "
                   f"(random), window {window}, softcap {c}; last {LM_TAIL} "
                   "rows held to plain",
-            **check_close(got[:, -LM_TAIL:], want, name, bound,
-                          norm_bound), ms=ms,
+            **attention_check(fa_ref, got[:, -LM_TAIL:], want, name,
+                              bound, norm_bound), ms=ms,
             plain_ms=None, plain="not measured: the plain score matrix "
                                  "would take 34 GB",
             bound_ms=b_ms, bound_by=by, **rates(ql, window, ms, b_ms),
@@ -1180,11 +1240,7 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
                            cfg)[0, len(r.prompt) - 1:]
         check(bool(logits.isfinite().all()), f"request {r.uid}: logits "
                                              "not finite")
-        top = logits.max(dim=-1).values
-        chosen = logits[torch.arange(len(out), device=dev),
-                        torch.from_numpy(out).long().to(dev)]
-        margin = (top - chosen) / fa_ref.ulp_bf16(logits.abs().max(
-            dim=-1).values)
+        margin = argmax_margin(torch, fa_ref, logits, out)
         worst = max(worst, float(margin.max()))
         check(bool((margin <= LM_EPS_ULPS).all()),
               f"request {r.uid}: a token {float(margin.max())} bf16 ulps "
@@ -2683,6 +2739,480 @@ def fleet_phases(torch, np, dev, rows: dict, card: str) -> dict:
     return out
 
 
+# the MLA and MoE LMs (phases 22-23) at full width; the MoE models' depth
+# is cut to what one 80 GB card holds beside its caches and activations
+MOE_DEPTH = {"phi3.5-moe-42b-a6.6b": 24, "grok-1-314b": 6}
+MOE_PROMPTS = (17, 1000, 4097, 8192)
+MOE_MAX_NEW = (8, 32, 16, 32)
+NORMS = ("ln1", "ln2", "final_norm", "q_norm", "kv_norm")
+PREFILL_OPS = ("aten::bmm", "aten::mm", "aten::index_add_", "aten::index",
+               "aten::sort", "aten::cumsum", "aten::_softmax", "aten::cat",
+               "aten::copy_")
+
+
+def random_lm(torch, T, cfg, dev) -> dict:
+    """Random weights from seed 0 (``T.init``), the norm weights then
+    drawn N(1, 0.1²) from seed 1: at the reference's zero init every
+    norm without gemma's ``1 +`` zeroes its output, and the logits with
+    it."""
+    params = T.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                    device=dev)
+    g = torch.Generator(dev).manual_seed(1)
+    for name, t in T.flatten(params).items():
+        if name.rsplit(".", 1)[-1] in NORMS:
+            t.normal_(1.0, 0.1, generator=g)
+    return params
+
+
+def k6_at_model_shape(torch, np, dev, cfg, params, card: str) -> dict:
+    """K6 on the real layer-0 q, k, v of an 8192-token prefill of
+    ``cfg`` (seed 1 tokens), against its plain version by groups of kv
+    heads under the p-rounding gates; timed beside the plain version
+    and SDPA. For MLA the call is the padded one (q / k 96 -> 128, v 64
+    -> 128): the plain version of the unpadded tensors equals the padded
+    one's first 64 columns in f32, the padded columns of the kernel's
+    output are 0, and SDPA, the route (pad, kernel, slice) and the true
+    bound take the unpadded shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops, \
+        ref as fa_ref
+    from repro_torch.models import layers as L
+
+    captured = prefill_attention_inputs(torch, np, dev, cfg, params, 1)
+    q, k, v, kw = captured[0]
+    hq, hkv, dp = q.shape[2], k.shape[2], q.shape[3]
+    mla = cfg.attention == "mla"
+    d = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim if mla else dp
+    dv = cfg.mla.v_head_dim if mla else dp
+    check(kw == dict(sm_scale=d ** -0.5, causal=True, window=0,
+                     softcap=cfg.attn_softcap) and v.shape[3] == dp,
+          f"{cfg.name}: flash call {tuple(v.shape)} {kw}")
+    pkw = dict(sm_scale=kw["sm_scale"], causal=True)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    grp = hq // hkv
+    per = max(1, 8 // grp)                 # kv heads in a plain-version call
+    groups = [slice(j, min(j + per, hkv)) for j in range(0, hkv, per)]
+
+    def parts(j, x_q, x_k, x_v):
+        return (x_q[:, :, j.start * grp:j.stop * grp], x_k[:, :, j],
+                x_v[:, :, j])
+
+    def by_group(fn, *xs):
+        return torch.cat([fn(*parts(j, *xs), **pkw) for j in groups], dim=2)
+
+    want = by_group(fa_ref.ref_flash_attention, q, k, v)
+    bound = by_group(fa_ref.p_rounding_bound, q, k, v)
+    norm_bound = sum(fa_ref.p_rounding_norm_bound(*parts(j, q, k, v), **pkw)
+                     ** 2 for j in groups) ** 0.5
+    res = attention_check(fa_ref, got, want, f"{cfg.name} layer 0", bound,
+                          norm_bound)
+    del want, bound
+    qu, ku, vu = (x[..., :n].contiguous()
+                  for x, n in ((q, d), (k, d), (v, dv)))
+    if mla:
+        check(bool((got[..., dv:] == 0).all()),
+              "the padded columns of the MLA kernel output are not 0")
+
+        def plain_f32(x_q, x_k, x_v, sm_scale, causal):
+            b, s, h, _ = x_q.shape
+
+            def fold(x):
+                return x.permute(0, 2, 1, 3).reshape(b * h, s, x.shape[-1])
+            p = fa_ref.attention_probs(fold(x_q), fold(x_k),
+                                       sm_scale=sm_scale, causal=causal)
+            return torch.einsum("bqk,bkd->bqd", p, fold(x_v).float())
+
+        res["padded_vs_unpadded_plain_f32_err"] = max(float(
+            (plain_f32(*parts(j, q, k, v), **pkw)[..., :dv]
+             - plain_f32(*parts(j, qu, ku, vu), **pkw)).abs().max())
+            for j in groups)
+        check(res["padded_vs_unpadded_plain_f32_err"] <= 1e-5,
+              f"padded plain attention differs from the unpadded: {res}")
+    del got
+    torch.cuda.synchronize()
+    ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw))
+    b_ms, by = attention_bound(q, k, 0)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qu, ku, vu))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=kw["sm_scale"],
+            enable_gqa=hq != hkv)
+
+    row = dict(
+        shape=f"{cfg.name} layer 0 of a {q.shape[1]}-token prefill: q "
+              f"{tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} bf16"
+              + (f" (q / k {d}, v {dv}, zero-padded to {dp})" if mla
+                 else "") + ", causal, softcap 0",
+        **res, ms=ms, body="wgmma" if fa_ops.body_of(
+            q.dtype, dp) is fa_ops.WGMMA else "fma",
+        plain_ms=time_ms(torch, lambda: by_group(
+            fa_ref.ref_flash_attention, q, k, v)),
+        plain="ref_flash_attention by groups of kv heads",
+        bound_ms=b_ms, bound_by=by, library_ms=time_ms(torch, sdpa),
+        library=f"F.scaled_dot_product_attention(is_causal=True, scale="
+                f"{d}**-0.5{', enable_gqa=True' if hq != hkv else ''}) on "
+                f"{'the unpadded ' if mla else ''}[B, H, S, d] copies",
+        tflops=attention_flops(q, 0) / ms / 1e9, share_of_bound=b_ms / ms)
+    row["library_ratio"] = ms / row["library_ms"]
+    if mla:
+        pos = torch.arange(q.shape[1], dtype=torch.int32, device=dev)
+        pairs = q.shape[0] * attention_pairs(q.shape[1], 0)
+        by_bytes = bound_ms(2 * q.shape[0] * q.shape[1] * (hq + hkv)
+                            * (d + dv))
+        by_ops = 2 * (d + dv) * hq * pairs / BF16_OPS_PER_S * 1e3
+        row.update(
+            bound_true_ms=max(by_bytes, by_ops),
+            bound_true_by="bytes" if by_bytes >= by_ops else "operations",
+            bound_note=f"bound_ms: the padded work (q, k, v, o at d {dp}); "
+                       f"bound_true_ms: the true work (q / k {d}, v / o "
+                       f"{dv})",
+            route_ms=time_ms(torch, lambda: L.multi_head_attention(
+                qu, ku, vu, q_positions=pos, k_positions=pos,
+                sm_scale=kw["sm_scale"])),
+            route="layers.multi_head_attention on the unpadded tensors: "
+                  "the pads, the kernel, the slice")
+    print(f"flash_attention {cfg.name} ({card}): {row}")
+    del q, k, v, qu, ku, vu, qt, kt, vt, captured
+    return row
+
+
+def routing_recorder(eng, M, E):
+    """Wraps ``moe.route``, ``engine._prefill`` and ``engine._decode`` to
+    keep, per engine call, the rows it routed (prefill: the request's
+    uid; decode: (uid, position) per slot, None for an empty one) and,
+    per layer, ``gate_idx`` and ``keep`` (cloned on the device, no sync).
+    Returns (the record, a function that undoes the wrapping)."""
+    calls = []
+    route, prefill, decode = M.route, E._prefill, E._decode
+    uids = iter(range(1, 1 << 30))      # the engine's uids, FIFO admission
+
+    def rec_route(*a):
+        r = route(*a)
+        calls[-1][2].append((r["gate_idx"].clone(), r["keep"].clone()))
+        return r
+
+    def rec_prefill(*a):
+        calls.append(("prefill", next(uids), []))
+        return prefill(*a)
+
+    def rec_decode(*a):
+        calls.append(("decode", [None if r is None else
+                                 (r.uid, int(eng.lengths[s]))
+                                 for s, r in enumerate(eng.active)], []))
+        return decode(*a)
+
+    M.route, E._prefill, E._decode = rec_route, rec_prefill, rec_decode
+
+    def undo():
+        M.route, E._prefill, E._decode = route, prefill, decode
+    return calls, undo
+
+
+def served_routing(torch, calls, uid: int, plen: int, n: int, k: int):
+    """Per layer, the routing the engine gave request ``uid``'s tokens
+    at positions 0..n-1 (the prompt's from its prefill, the rest from
+    the decode steps that fed them): (gate_idx [n, k], keep [k * n]
+    choice-major)."""
+    pre = next(c for c in calls if c[0] == "prefill" and c[1] == uid)
+    steps = []
+    for c in calls:
+        if c[0] == "decode":
+            for s, row in enumerate(c[1]):
+                if row is not None and row[0] == uid:
+                    steps.append((c, s, row[1]))
+    steps = steps[:n - plen]
+    check([p for _, _, p in steps] == list(range(plen, n)),
+          f"request {uid}: decode positions do not follow its prompt")
+    out = []
+    for i, (gate_p, keep_p) in enumerate(pre[2]):
+        gates, keeps = [gate_p[:plen]], [keep_p.view(k, -1)[:, :plen]]
+        for c, s, _ in steps:
+            gate_d, keep_d = c[2][i]
+            gates.append(gate_d[s:s + 1])
+            keeps.append(keep_d.view(k, -1)[:, s:s + 1])
+        out.append((torch.cat(gates), torch.cat(keeps, dim=1).reshape(-1)))
+    return out
+
+
+def forced_route(torch, F, decisions):
+    """A ``moe.route`` that takes each call's decisions (gate_idx, keep)
+    from ``decisions`` (one a layer, in order) and computes the rest from
+    its own input: the gates from its probabilities at those experts,
+    the buffer ranks among the kept rows."""
+    it = iter(decisions)
+
+    def route(params, xt, cfg, cap):
+        gate_idx, keep = next(it)
+        check(gate_idx.shape[0] == xt.shape[0], "forced routing rows")
+        probs = torch.softmax(xt.float() @ params["router"], dim=-1)
+        vals = probs.gather(1, gate_idx)
+        vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+        expert = gate_idx.T.reshape(-1)
+        ranks = torch.cumsum(F.one_hot(expert, cfg.num_experts)
+                             * keep[:, None], dim=0) - 1
+        pos = torch.where(keep, ranks.gather(1, expert[:, None])[:, 0], 0)
+        return {"probs": probs, "gate_idx": gate_idx, "gate_vals": vals,
+                "expert": expert, "pos": pos, "keep": keep,
+                "aux": torch.zeros((), device=xt.device)}
+    return route
+
+
+def recount_drops(np, probs, k: int, cap: int) -> tuple:
+    """numpy's top-k (ties to the lower expert) and its capacity drops
+    from router probabilities [T, E]: choice-major ranks."""
+    idx = np.argsort(-probs, axis=1, kind="stable")[:, :k]
+    expert = idx.T.reshape(-1)
+    ranks = np.cumsum(np.eye(probs.shape[1], dtype=np.int64)[expert],
+                      axis=0)[np.arange(expert.size), expert] - 1
+    return idx, int((ranks >= cap).sum())
+
+
+def serve_model(torch, np, dev, cfg, params, prompt_lens, max_new,
+                card: str) -> dict:
+    """Phase 22 / 23 for one model: ``Engine(slots=4, prompt_buf=8192,
+    cache_buf=8256)`` serves the requests with K6's launches counted
+    (every prefill layer, all on the Hopper body); every emitted token
+    within ``LM_EPS_ULPS`` bf16 ulps of the row's largest |logit| of the
+    teacher-forced ``forward`` argmax. For MoE the engine's routing is
+    recorded and the teacher-forced forward takes it (the experts and
+    keep mask each token was served with: capacity depends on the batch
+    a token was routed in, cap = 1 at a 4-slot decode step), and the
+    capacity drops of one prefill equal a numpy recount. Then TTFT,
+    decode ms/step, tokens/s, peak memory and the prefill's device ms by
+    op (``torch.profiler``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops, \
+        ref as fa_ref
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from torch.autograd import DeviceType
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in prompt_lens]
+    eng = E.Engine(params, cfg, slots=4, prompt_buf=LM_PROMPT_BUF,
+                   cache_buf=LM_CACHE_BUF)
+    for p, n in zip(prompts, max_new):
+        eng.submit(p, max_new=n)
+    moe = cfg.moe is not None
+    calls, undo = routing_recorder(eng, M, E) if moe else ([], lambda: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    try:
+        done = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    run_s = time.perf_counter() - t0
+    launches = fa_ops.KERNEL.launches
+    bodies = {"wgmma": fa_ops.WGMMA.launches, "fma": fa_ops.FMA.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_tokens = sum(len(r.out_tokens) for r in done)
+    print(f"{cfg.name} serving run ({card}): {len(done)} requests, "
+          f"{n_tokens} tokens in {run_s:.2f} s; flash_attention launches "
+          f"{launches} (by body {bodies}); peak {peak:.2f} GiB")
+    check(len(done) == len(prompts), f"{cfg.name}: not every request "
+                                     "finished")
+    check(launches == cfg.n_layers * len(prompts),
+          f"{cfg.name}: flash_attention launched {launches} times, "
+          f"expected {cfg.n_layers} per prefill")
+    check(bodies["wgmma"] == launches,
+          f"{cfg.name}: not every prefill attention took the Hopper body: "
+          f"{bodies}")
+    worst, drops = 0.0, {"prefill": [0, 0], "decode": [0, 0]}
+    unforced = [0.0, 0, 0]          # worst margin, tokens over the gate, of
+    route, capacity = M.route, M.capacity
+    for r in sorted(done, key=lambda r: r.uid):
+        out = np.asarray(r.out_tokens, np.int32)
+        check(len(out) == r.max_new and bool(((out >= 0) & (
+            out < cfg.padded_vocab)).all()), f"request {r.uid} tokens")
+        seq = np.concatenate([r.prompt, out[:-1]])
+        plen = len(r.prompt)
+        if moe:
+            served = served_routing(torch, calls, r.uid, plen, len(seq),
+                                    cfg.moe.top_k)
+            for gate_idx, keep in served:
+                kept = keep.view(cfg.moe.top_k, -1)
+                for part, cols in (("prefill", kept[:, :plen]),
+                                   ("decode", kept[:, plen:])):
+                    drops[part][0] += int((~cols).sum())
+                    drops[part][1] += cols.numel()
+            cap = max(int(torch.bincount(
+                g.T.reshape(-1)[kp], minlength=cfg.moe.num_experts).max())
+                for g, kp in served)
+            M.route = forced_route(torch, F, served)
+            M.capacity = lambda c, chunk, cap=cap: cap
+        try:
+            logits = T.forward(params, torch.from_numpy(seq).to(dev)[None],
+                               cfg)[0, plen - 1:]
+        finally:
+            M.route, M.capacity = route, capacity
+        check(bool(logits.isfinite().all()), f"request {r.uid}: logits "
+                                             "not finite")
+        margin = argmax_margin(torch, fa_ref, logits, out)
+        worst = max(worst, float(margin.max()))
+        if moe:     # the same forward with its own routing: printed only
+            free = argmax_margin(torch, fa_ref, T.forward(
+                params, torch.from_numpy(seq).to(dev)[None], cfg)[
+                    0, plen - 1:], out)
+            unforced = [max(unforced[0], float(free.max())),
+                        unforced[1] + int((free > LM_EPS_ULPS).sum()),
+                        unforced[2] + free.numel()]
+        check(bool((margin <= LM_EPS_ULPS).all()),
+              f"{cfg.name} request {r.uid}: a token {float(margin.max())} "
+              "bf16 ulps below the teacher-forced argmax")
+        del logits
+    del calls
+    print(f"{cfg.name} teacher-forced check: every token within "
+          f"{LM_EPS_ULPS} bf16 ulps of the argmax; worst margin "
+          f"{worst:.3f} ulps" + (f"; real-token expert choices dropped "
+                                 f"(dropped, of) {drops}; the forward "
+                                 f"with its own routing: worst margin "
+                                 f"{unforced[0]:.3f} ulps, {unforced[1]} "
+                                 f"of {unforced[2]} tokens over the gate"
+                                 if moe else ""))
+
+    def prefill_of(p):
+        toks = np.zeros((1, LM_PROMPT_BUF), np.int32)
+        toks[0, :len(p)] = p
+        one = T.init_cache(cfg, 1, LM_CACHE_BUF, device=dev)
+        logits, one = E._prefill(
+            params, torch.from_numpy(toks).to(dev), one,
+            torch.tensor([len(p)], dtype=torch.int32, device=dev), cfg)
+        return logits, one
+
+    res = {}
+    if moe:
+        # one prefill's capacity drops against a numpy recount
+        probs, counted = [], []
+
+        def rec(*a):
+            r = route(*a)
+            probs.append(r["probs"])
+            counted.append((r["gate_idx"], int((~r["keep"]).sum())))
+            return r
+
+        M.route = rec
+        try:
+            prefill_of(prompts[0])
+        finally:
+            M.route = route
+        cap = M.capacity(cfg.moe, LM_PROMPT_BUF)
+        per_layer = []
+        for p, (gate_idx, n_drop) in zip(probs, counted):
+            idx, want = recount_drops(np, p.cpu().numpy(), cfg.moe.top_k,
+                                      cap)
+            check(np.array_equal(idx, gate_idx.cpu().numpy()) and
+                  n_drop == want, f"{cfg.name}: capacity drops {n_drop} != "
+                                  f"numpy's {want}, or the experts differ")
+            per_layer.append(n_drop)
+        del probs, counted
+        res["prefill_capacity_drops"] = dict(
+            prompt=len(prompts[0]), cap=cap, per_layer=per_layer,
+            of=cfg.moe.top_k * LM_PROMPT_BUF)
+        res["served_real_token_drops"] = drops
+        res["unforced_forward"] = dict(worst_margin_ulps=unforced[0],
+                                       over_gate=unforced[1],
+                                       tokens=unforced[2])
+        print(f"{cfg.name}: capacity drops of the {len(prompts[0])}-token "
+              f"prompt's prefill (cap {cap}) equal numpy's recount, per "
+              f"layer {per_layer}")
+
+    def first_token(p):
+        logits, one = prefill_of(p)
+        E._void_padding(one, [len(p)])
+        E._splice(eng.cache, one, 0)
+        return int(E.greedy(logits[:, len(p) - 1])[0])
+
+    ttft = {len(p): time_ms(torch, lambda p=p: first_token(p))
+            for p in (prompts[0], prompts[-1])}
+    lengths = torch.tensor([n + m for n, m in zip(prompt_lens, max_new)][:4],
+                           dtype=torch.int32, device=dev)
+    last = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def decode_step():
+        logits, _ = E._decode(params, last, eng.cache, lengths, cfg)
+        return E.greedy(logits).cpu()
+    decode_ms = time_ms(torch, decode_step, reps=5)
+    full = prompts[prompt_lens.index(LM_PROMPT_BUF)]
+    prof = profiled(torch, lambda: prefill_of(full))
+    ev = prof.key_averages()
+    device = sum(e.self_device_time_total for e in ev
+                 if e.device_type != DeviceType.CPU) / 1e3
+    flash = sum(e.self_device_time_total for e in ev
+                if e.device_type != DeviceType.CPU
+                and "flash_wgmma_kernel" in e.key) / 1e3
+    by_op = {e.key: getattr(e, "device_time_total", 0.0) / 1e3 for e in ev
+             if e.device_type == DeviceType.CPU and e.key in PREFILL_OPS}
+    res.update({
+        "ttft_ms": ttft, "decode_ms_per_step_4_slots": decode_ms,
+        "run_s": run_s, "tokens": n_tokens, "tokens_per_s": n_tokens / run_s,
+        "flash_launches": launches, "flash_launches_by_body": bodies,
+        "peak_gib": peak, "worst_margin_ulps": worst,
+        "prefill_8192_device_ms": device, "prefill_flash_ms": flash,
+        "prefill_device_ms_by_op": by_op,
+        "prefill_top_device_ops": top_device_ops(
+            [e for e in ev if e.device_type != DeviceType.CPU
+             and e.self_device_time_total > 0], 1),
+        "card": card})
+    print(f"{cfg.name} serving ({card}): {res}")
+    del eng
+    return res
+
+
+def mla_moe_phases(torch, np, dev, rows: dict, card: str) -> dict:
+    """Phases 22-23: minicpm3-4b at full width and depth, then
+    phi3.5-moe and grok-1 at full width with their depth cut
+    (``MOE_DEPTH``), one model on the card at a time. Adds each model's
+    K6 row to the ``flash_attention`` row's ``also``."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    out = {}
+    plan = [("minicpm3-4b", None, LM_PROMPTS, LM_MAX_NEW)] + [
+        (arch, n, MOE_PROMPTS, MOE_MAX_NEW) for arch, n in MOE_DEPTH.items()]
+    for phase, (arch, depth, prompts, max_new) in zip((22, 23, 23), plan):
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        cfg = get_arch(arch).make_config()
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        params = random_lm(torch, T, cfg, dev)
+        torch.cuda.synchronize()
+        print(f"phase {phase}: {arch}, {cfg.n_layers} layers, "
+              f"{T.param_count(cfg)} parameters "
+              f"({T.param_count(cfg) * 2 / 1e9:.2f} GB bf16), init "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{held:.2f} GiB held before")
+        row = k6_at_model_shape(torch, np, dev, cfg, params, card)
+        res = serve_model(torch, np, dev, cfg, params, list(prompts),
+                          list(max_new), card)
+        row["launches"] = res["flash_launches"]
+        rows["flash_attention"]["also"].append(row)
+        res["layers"] = cfg.n_layers
+        res["phase_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["phase_s"] = time.perf_counter() - t0
+        print(f"phase {phase} {arch}: {res['phase_s']:.1f} s, peak "
+              f"{res['phase_peak_gib']:.2f} GiB")
+        out[arch] = res
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     # the one torch.compile (phase 11's flex_attention yardstick) keeps
     # its caches in the checkout's build directory and compiles in-process
@@ -3102,6 +3632,10 @@ def main() -> int:
 
     # -- 21. the fleet -------------------------------------------------------
     e2e.update(fleet_phases(torch, np, dev, rows, card))
+
+    # -- 22.-23. the MLA and MoE LMs, one model on the card at a time --------
+    del graphs, oracles, scans, results, flat
+    e2e.update(mla_moe_phases(torch, np, dev, rows, card))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

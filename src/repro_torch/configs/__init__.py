@@ -1,8 +1,9 @@
 """Architecture registry: one module per assigned architecture, the
 port of ``repro.configs``. The same ten ids; ``dcn-v2`` (recsys) and
-the two GQA LMs ``gemma2-2b`` and ``qwen2.5-32b`` are ported so far,
-and ``get_arch`` raises ``NotImplementedError`` for the others, naming
-the ROADMAP queue that ports them.
+the five LMs (GQA ``gemma2-2b`` and ``qwen2.5-32b``, MLA
+``minicpm3-4b``, MoE ``grok-1-314b`` and ``phi3.5-moe-42b-a6.6b``) are
+ported so far, and ``get_arch`` raises ``NotImplementedError`` for the
+GNN ids, naming the ROADMAP queue that ports them.
 
 A ported module exposes what the launcher consumes:
 
@@ -22,21 +23,19 @@ import importlib
 
 # what each id that is not ported yet waits for
 _UNPORTED = {
-    "minicpm3-4b": "mla",
-    "grok-1-314b": "moe",
-    "phi3.5-moe-42b-a6.6b": "moe",
     "nequip": "gnn",
     "gatedgcn": "gnn",
     "graphsage-reddit": "gnn",
     "gin-tu": "gnn",
 }
 _QUEUE = {
-    "mla": "ROADMAP A11, the MLA LM config (multi-head latent attention)",
-    "moe": "ROADMAP A11, the MoE LM configs (the MoE FFN)",
     "gnn": "ROADMAP A11, GNN forward through the segment_reduce kernel",
 }
 _MODULES = {"qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
             "gemma2-2b": "repro_torch.configs.gemma2_2b",
+            "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+            "grok-1-314b": "repro_torch.configs.grok_1_314b",
+            "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
             "dcn-v2": "repro_torch.configs.dcn_v2"}
 ARCH_IDS = ("qwen2.5-32b", "gemma2-2b", "minicpm3-4b", "grok-1-314b",
             "phi3.5-moe-42b-a6.6b", "nequip", "gatedgcn",

@@ -93,8 +93,7 @@ def _build_lm(arch_id: str, shape: str, device: torch.device) -> Cell:
             "LM training)")
     cfg = mod.make_config()
     specs = mod.input_specs(shape)
-    params = T.flatten(T.param_shapes(cfg))
-    params = {n: (s, cfg.dtype) for n, s in params.items()}
+    params = T.param_specs(cfg)
     if kind == "prefill":
         def step(model, tokens, cache):
             tokens = _on(tokens, device)
@@ -159,7 +158,7 @@ def build_cell(arch_id: str, shape: str, *, device=None, mesh=None) -> Cell:
         raise ValueError(f"{arch_id} runs on one device; mesh= is for the "
                          "cc-adaptive cell")
     device = resolve_device(device)
-    # get_arch raises for the ids that are not ported (MLA, MoE, GNN)
+    # get_arch raises for the ids that are not ported (GNN)
     if get_arch(arch_id).FAMILY == "lm":
         return _build_lm(arch_id, shape, device)
     return _build_recsys(arch_id, shape, device)

@@ -6,8 +6,9 @@ initialisation always draws from an explicit ``torch.Generator``.
 Rounding follows the reference: norms and rotary embeddings compute in
 float32 and cast back; attention scores are float32 whatever the model
 dtype. Prefill attention (every ``Sq > 1`` call over fresh keys at
-positions 0..) runs through the flash-attention kernel; the rest, the
-decode step over the caches above all, through ``attention_dense``.
+positions 0..) runs through the flash-attention kernel, MLA's too (its
+head dims zero-padded to one the kernel takes); the rest, the decode
+step over the caches above all, through ``attention_dense``.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, \
+    flash_attention
 
 NEG_INF = -1e30        # the reference's mask constant
 
@@ -35,7 +37,7 @@ def normal_init(shape, std: float, dtype: torch.dtype, *,
     """N(0, std²) drawn in float32, then cast to ``dtype``."""
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def mlp_params(dims: list[int], dtype: torch.dtype, *,
@@ -127,10 +129,10 @@ def attention_dense(q, k, v, *, q_positions, k_positions, window: int,
                     attn_softcap: float, scale: float, kv_mask=None
                     ) -> torch.Tensor:
     """The direct S x S scores path (the reference's ``_attention_dense``):
-    q [B, Sq, Hq, d], k, v [B, Sk, Hkv, d]. Scores in float32 (the
-    operands are upcast, as the reference's products accumulate in f32),
-    p rounded to v's dtype before the PV product, one rounding of the
-    output to q's dtype."""
+    q [B, Sq, Hq, d], k [B, Sk, Hkv, d], v [B, Sk, Hkv, dv]. Scores in
+    float32 (the operands are upcast, as the reference's products
+    accumulate in f32), p rounded to v's dtype before the PV product,
+    one rounding of the output to q's dtype."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, d)
@@ -154,20 +156,36 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          sm_scale: float | None = None,
                          kv_mask: torch.Tensor | None = None
                          ) -> torch.Tensor:
-    """GQA attention. q [B, Sq, Hq, d]; k, v [B, Sk, Hkv, d].
+    """GQA attention. q [B, Sq, Hq, d]; k [B, Sk, Hkv, d]; v [B, Sk, Hkv,
+    dv] (MLA: dv != d).
 
     A prefill over fresh keys (``Sq > 1``, shared 1-D positions,
     ``k_positions is q_positions``, no ``kv_mask``) is exactly the
     flash kernel's contract: positions 0.. on both sides, causal, the
     layer's window and softcap. It goes to ``flash_attention`` (the
-    kernel on a CUDA tensor, its plain version on a CPU one). Everything
-    else, the decode step over the caches' stored positions above all,
-    goes to ``attention_dense``."""
+    kernel on a CUDA tensor, its plain version on a CPU one). Head dims
+    the kernel does not take (MLA's d = 96, dv = 64) are zero-padded to
+    the smallest of ``HEAD_DIMS`` that holds both, with the scale given
+    for the true d, and the output cut back to dv: a zero column adds an
+    exact zero to every dot product and to the PV sum. Everything else,
+    the decode step over the caches' stored positions above all, goes to
+    ``attention_dense``."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if (q.shape[1] > 1 and q_positions.dim() == 1
             and k_positions is q_positions and kv_mask is None):
-        return flash_attention(q, k, v, sm_scale=scale, causal=True,
-                               window=int(window), softcap=attn_softcap)
+        kw = dict(sm_scale=scale, causal=True, window=int(window),
+                  softcap=attn_softcap)
+        d, dv = q.shape[-1], v.shape[-1]
+        if d == dv and d in HEAD_DIMS:
+            return flash_attention(q, k, v, **kw)
+        fits = [h for h in HEAD_DIMS if h >= max(d, dv)]
+        if not fits:
+            raise ValueError(f"head dims {d} / {dv} exceed the flash "
+                             f"kernel's largest, {HEAD_DIMS[-1]}")
+        dp = fits[0]
+        out = flash_attention(F.pad(q, (0, dp - d)), F.pad(k, (0, dp - d)),
+                              F.pad(v, (0, dp - dv)), **kw)
+        return out[..., :dv]
     return attention_dense(q, k, v, q_positions=q_positions,
                            k_positions=k_positions, window=int(window),
                            attn_softcap=attn_softcap, scale=scale,

@@ -1,15 +1,19 @@
-"""The LM transformer, the port of ``repro.models.transformer`` for the
-grouped-query (GQA) architectures: gemma2 (alternating local sliding-
-window and global layers, logit softcaps, post-norms, embedding
-scaling, tied embeddings, GeGLU) and qwen2.5 (QKV bias, SwiGLU).
+"""The LM transformer, the port of ``repro.models.transformer``:
+grouped-query attention (GQA) with gemma2's features (alternating local
+sliding-window and global layers, logit softcaps, post-norms, embedding
+scaling, tied embeddings, GeGLU) and qwen2.5's (QKV bias, SwiGLU);
+multi-head latent attention (MLA: low-rank Q and KV with a decoupled
+rotary part, minicpm3); and the MoE FFN (``models.moe``: grok-1,
+phi3.5-moe).
 
 Parameters are plain dicts of tensors: ``embed`` [padded_vocab, D],
 ``layers`` (one dict per layer, in order), ``final_norm`` and, unless
-the embedding is tied, ``lm_head``. The reference stacks its layers
-and ``lax.scan``s them, with a (local, global) pair as the scan unit;
-here the layers are a list walked by a loop, layer 2i being block i's
-``local`` half and 2i + 1 its ``global`` half (``params_from_reference``
-does the unstacking).
+the embedding is tied, ``lm_head``. Every leaf carries the config's
+dtype except the MoE router, which is float32 (``param_specs``). The
+reference stacks its layers and ``lax.scan``s them, with a (local,
+global) pair as the scan unit; here the layers are a list walked by a
+loop, layer 2i being block i's ``local`` half and 2i + 1 its ``global``
+half (``params_from_reference`` does the unstacking).
 
 Serving (``forward_with_cache``): requests are RIGHT-padded to the
 prompt buffer; every position's cache slot is its index (full caches)
@@ -17,21 +21,30 @@ or index % W (the ring caches of gemma2's local layers). Prefill
 attends with the fresh keys, through the flash-attention kernel, and
 only WRITES the cache; decode reads the cache through its stored
 per-slot positions (-1 = empty), through the dense path. Unlike the
-reference, the cache is updated IN PLACE and returned.
-
-MLA (minicpm3) and MoE (grok-1, phi3.5-moe) are not ported: their
-configs raise ``NotImplementedError``.
+reference, the cache is updated IN PLACE and returned. An MLA layer
+caches its normed latent ``ckv`` and roped ``kr`` and re-expands k and
+v from them at every decode step (the reference's cache-lean variant).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
 from repro_torch.graphs.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_params
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +64,9 @@ class LMConfig:
     final_softcap: float = 0.0
     window: int = 0                   # sliding window width (local layers)
     layer_pattern: str = "global"     # "global" | "local_global"
-    attention: str = "gqa"
-    moe: Optional[Any] = None
+    attention: str = "gqa"            # "gqa" | "mla"
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
     post_norm: bool = False           # gemma2-style post-norms
     embed_scale: bool = False         # multiply embedding by sqrt(D)
     tie_embed: bool = False           # lm_head = embed.T (gemma2)
@@ -60,14 +74,10 @@ class LMConfig:
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
-        if self.attention != "gqa":
-            raise NotImplementedError(
-                f"{self.name}: attention={self.attention!r} is not ported "
-                "yet (ROADMAP A11, the MLA LM config)")
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: the MoE FFN is not ported yet (ROADMAP A11, "
-                "the MoE LM configs)")
+        if self.attention not in ("gqa", "mla"):
+            raise ValueError(f"unknown attention {self.attention!r}")
+        if (self.attention == "mla") != (self.mla is not None):
+            raise ValueError("attention='mla' goes with an MLAConfig")
         if self.layer_pattern not in ("global", "local_global"):
             raise ValueError(f"unknown layer_pattern {self.layer_pattern!r}")
         if self.layer_pattern == "local_global" and self.n_layers % 2:
@@ -82,6 +92,15 @@ class LMConfig:
 
     @property
     def q_dim(self) -> int:
+        if self.attention == "mla":
+            return self.n_heads * (self.mla.qk_nope_dim
+                                   + self.mla.qk_rope_dim)
+        return self.n_heads * self.head_dim
+
+    @property
+    def o_in_dim(self) -> int:
+        if self.attention == "mla":
+            return self.n_heads * self.mla.v_head_dim
         return self.n_heads * self.head_dim
 
     def is_local(self, layer: int) -> bool:
@@ -99,15 +118,35 @@ class LMConfig:
 # Parameters
 # ==========================================================================
 
-def _layer_shapes(cfg: LMConfig) -> dict:
-    d, kv = cfg.d_model, cfg.n_kv_heads * cfg.head_dim
+def _attn_shapes(cfg: LMConfig) -> dict:
+    d = cfg.d_model
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return {"q_a": (d, m.q_lora_rank), "q_norm": (m.q_lora_rank,),
+                "q_b": (m.q_lora_rank, cfg.q_dim),
+                "kv_a": (d, m.kv_lora_rank + m.qk_rope_dim),
+                "kv_norm": (m.kv_lora_rank,),
+                "kv_b": (m.kv_lora_rank,
+                         cfg.n_heads * (m.qk_nope_dim + m.v_head_dim)),
+                "wo": (cfg.o_in_dim, d)}
+    kv = cfg.n_kv_heads * cfg.head_dim
     attn = {"wq": (d, cfg.q_dim), "wk": (d, kv), "wv": (d, kv),
             "wo": (cfg.q_dim, d)}
     if cfg.qkv_bias:
         attn.update(bq=(cfg.q_dim,), bk=(kv,), bv=(kv,))
-    p = {"ln1": (d,), "ln2": (d,), "attn": attn,
-         "mlp": {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
-                 "w_down": (cfg.d_ff, d)}}
+    return attn
+
+
+def _layer_shapes(cfg: LMConfig) -> dict:
+    d = cfg.d_model
+    p = {"ln1": (d,), "ln2": (d,), "attn": _attn_shapes(cfg)}
+    if cfg.moe is not None:
+        e, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        p["moe"] = {"router": (d, e), "w_gate": (e, d, f),
+                    "w_up": (e, d, f), "w_down": (e, f, d)}
+    else:
+        p["mlp"] = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+                    "w_down": (cfg.d_ff, d)}
     if cfg.post_norm:
         p.update(ln1_post=(d,), ln2_post=(d,))
     return p
@@ -138,6 +177,13 @@ def flatten(tree, prefix: str = "") -> dict:
     return out
 
 
+def param_specs(cfg: LMConfig) -> dict:
+    """``{dotted name: (shape, dtype)}`` of every parameter: the config's
+    dtype, float32 for the MoE router (allocates nothing)."""
+    return {n: (s, torch.float32 if n.endswith("moe.router") else cfg.dtype)
+            for n, s in flatten(param_shapes(cfg)).items()}
+
+
 def param_count(cfg: LMConfig) -> int:
     return sum(math.prod(s) for s in flatten(param_shapes(cfg)).values())
 
@@ -146,9 +192,10 @@ def init(cfg: LMConfig, *, generator: torch.Generator | None = None,
          device=None) -> dict:
     """Random parameters on ``device`` (CUDA unless given; raises
     without CUDA unless ``device="cpu"``) with the reference's
-    initialisation: embedding N(0, 0.02²), projections N(0, 1/fan_in),
-    biases and norm weights 0. Every draw comes from ``generator`` (a
-    generator of that device seeded 0 when None)."""
+    initialisation: embedding N(0, 0.02²), projections, the MoE router
+    (float32) and experts N(0, 1/fan_in), biases and norm weights 0.
+    Every draw comes from ``generator`` (a generator of that device
+    seeded 0 when None)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
@@ -156,17 +203,18 @@ def init(cfg: LMConfig, *, generator: torch.Generator | None = None,
     d = cfg.d_model
     zeros = lambda *s: torch.zeros(s, dtype=cfg.dtype, device=dev)
 
+    def attn():
+        shapes = _attn_shapes(cfg)
+        return {name: zeros(*s) if len(s) == 1 else
+                L.normal_init(s, s[0] ** -0.5, cfg.dtype, **g)
+                for name, s in shapes.items()}
+
     def layer():
-        kv = cfg.n_kv_heads * cfg.head_dim
-        attn = {"wq": L.normal_init((d, cfg.q_dim), d ** -0.5, cfg.dtype, **g),
-                "wk": L.normal_init((d, kv), d ** -0.5, cfg.dtype, **g),
-                "wv": L.normal_init((d, kv), d ** -0.5, cfg.dtype, **g),
-                "wo": L.normal_init((cfg.q_dim, d), cfg.q_dim ** -0.5,
-                                    cfg.dtype, **g)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(cfg.q_dim), bk=zeros(kv), bv=zeros(kv))
-        p = {"ln1": zeros(d), "ln2": zeros(d), "attn": attn,
-             "mlp": L.gated_mlp_params(d, cfg.d_ff, cfg.dtype, **g)}
+        p = {"ln1": zeros(d), "ln2": zeros(d), "attn": attn()}
+        if cfg.moe is not None:
+            p["moe"] = moe_params(d, cfg.moe, cfg.dtype, **g)
+        else:
+            p["mlp"] = L.gated_mlp_params(d, cfg.d_ff, cfg.dtype, **g)
         if cfg.post_norm:
             p.update(ln1_post=zeros(d), ln2_post=zeros(d))
         return p
@@ -187,7 +235,8 @@ def params_from_reference(tree: dict, cfg: LMConfig, *, device) -> dict:
     ``final_norm``, ``lm_head``) given as host arrays. For
     ``local_global`` block i's ``local`` half becomes layer 2i and its
     ``global`` half layer 2i + 1. Raises if a shape or dtype differs
-    from ``cfg``'s."""
+    from ``param_specs(cfg)``'s (the MoE router float32, the rest the
+    config's dtype)."""
     dev = resolve_device(device)
 
     def conv(a):
@@ -209,13 +258,14 @@ def params_from_reference(tree: dict, cfg: LMConfig, *, device) -> dict:
            "final_norm": conv(tree["final_norm"])}
     if "lm_head" in tree:
         out["lm_head"] = conv(tree["lm_head"])
-    got, want = flatten(out), flatten(param_shapes(cfg))
-    if {k: tuple(v.shape) for k, v in got.items()} != want:
+    got, want = flatten(out), param_specs(cfg)
+    if {k: tuple(v.shape) for k, v in got.items()} != \
+            {k: s for k, (s, _) in want.items()}:
         raise ValueError("parameter shapes do not match the config")
     for name, t in got.items():
-        if t.dtype != cfg.dtype:
+        if t.dtype != want[name][1]:
             raise ValueError(f"{name} is {t.dtype}, the config says "
-                             f"{cfg.dtype}")
+                             f"{want[name][1]}")
     return out
 
 
@@ -259,14 +309,67 @@ def _gqa_attention(p: dict, cfg: LMConfig, x: torch.Tensor,
     return out.reshape(b, s, cfg.q_dim) @ p["wo"]
 
 
+def _mla_project(p: dict, cfg: LMConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """x [B, S, D] -> (the normed latent ckv [B, S, kv_lora_rank], the
+    roped k_rope [B, S, qk_rope_dim]): what the MLA decode cache
+    holds."""
+    m = cfg.mla
+    ckv, k_rope = (x @ p["kv_a"]).split([m.kv_lora_rank, m.qk_rope_dim],
+                                        dim=-1)
+    ckv = L.rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    k_rope = L.apply_rope(k_rope[:, :, None, :], positions,
+                          cfg.rope_theta)[:, :, 0, :]
+    return ckv, k_rope
+
+
+def _mla_attention(p: dict, cfg: LMConfig, x: torch.Tensor,
+                   positions: torch.Tensor, cache_override=None,
+                   k_positions=None) -> torch.Tensor:
+    """MLA: low-rank compressed q and kv with a decoupled rotary part
+    (DeepSeek-V2 style). ``cache_override``: (ckv, k_rope), already
+    normed and roped (a prefill's fresh latent or a decode cache); k and
+    v are re-expanded from the latent at every call (the cache-lean
+    variant). q and k have head dim qk_nope + qk_rope, v v_head_dim."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    cq = L.rms_norm(x @ p["q_a"], p["q_norm"], cfg.norm_eps)
+    q_nope, q_rope = (cq @ p["q_b"]).reshape(
+        b, s, h, m.qk_nope_dim + m.qk_rope_dim).split(
+            [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q = torch.cat([q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)],
+                  dim=-1)
+    if cache_override is None:
+        ckv, k_rope = _mla_project(p, cfg, x, positions)
+        k_positions = positions
+    else:
+        ckv, k_rope = cache_override
+    k_nope, v = (ckv @ p["kv_b"]).reshape(
+        ckv.shape[0], ckv.shape[1], h, m.qk_nope_dim + m.v_head_dim).split(
+            [m.qk_nope_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], m.qk_rope_dim)], dim=-1)
+    out = L.multi_head_attention(
+        q, k, v, q_positions=positions, k_positions=k_positions, window=0,
+        attn_softcap=cfg.attn_softcap,
+        sm_scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5)
+    return out.reshape(b, s, cfg.o_in_dim) @ p["wo"]
+
+
 def _ffn_block(p: dict, cfg: LMConfig, x: torch.Tensor, a: torch.Tensor
                ) -> torch.Tensor:
-    """The residual around the attention output ``a``, then the MLP's."""
+    """The residual around the attention output ``a``, then the FFN's
+    (the MoE's aux loss is dropped, as the reference's serving path
+    drops it)."""
     if cfg.post_norm:
         a = L.rms_norm(a, p["ln1_post"], cfg.norm_eps, plus_one=True)
     x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=cfg.post_norm)
-    f = L.gated_mlp_apply(p["mlp"], h, cfg.act)
+    if cfg.moe is not None:
+        f, _ = moe_apply(p["moe"], h, cfg.moe)
+    else:
+        f = L.gated_mlp_apply(p["mlp"], h, cfg.act)
     if cfg.post_norm:
         f = L.rms_norm(f, p["ln2_post"], cfg.norm_eps, plus_one=True)
     return x + f
@@ -275,8 +378,11 @@ def _ffn_block(p: dict, cfg: LMConfig, x: torch.Tensor, a: torch.Tensor
 def _layer_apply(p: dict, cfg: LMConfig, x: torch.Tensor,
                  positions: torch.Tensor, window: int) -> torch.Tensor:
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norm)
-    return _ffn_block(p, cfg, x, _gqa_attention(p["attn"], cfg, h,
-                                                positions, window))
+    if cfg.attention == "mla":
+        a = _mla_attention(p["attn"], cfg, h, positions)
+    else:
+        a = _gqa_attention(p["attn"], cfg, h, positions, window)
+    return _ffn_block(p, cfg, x, a)
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: LMConfig
@@ -313,8 +419,10 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig
 @torch.no_grad()
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
             ) -> torch.Tensor:
-    """tokens [B, S] -> float32 logits [B, S, padded_vocab]. (The
-    reference also returns the MoE aux loss, 0 for these models.)"""
+    """tokens [B, S] -> float32 logits [B, S, padded_vocab]. The
+    reference also returns the MoE load-balancing aux loss (0 without
+    MoE); the port drops it until a loss sums it (LM training, ROADMAP
+    A11.3)."""
     return _logits(params, forward_hidden(params, tokens, cfg), cfg)
 
 
@@ -324,12 +432,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
 
 def cache_spec(cfg: LMConfig, batch: int, buf: int) -> dict:
     """The decode cache as a tree of ``(shape, dtype)`` (allocates
-    nothing): ``layers`` (per layer ``k``, ``v`` [batch, n, Hkv, dh],
-    n = min(window, buf) for a local layer's ring, else buf), ``pos``
-    [batch, buf] and, for local_global, ``pos_local`` [batch, ring] int32:
-    the sequence position held in each slot (-1 = empty)."""
+    nothing): ``layers`` (per layer ``k``, ``v`` [batch, n, Hkv, dh], or
+    for MLA ``ckv`` [batch, n, kv_lora_rank] and ``kr`` [batch, n,
+    qk_rope_dim]; n = min(window, buf) for a local layer's ring, else
+    buf), ``pos`` [batch, buf] and, for local_global, ``pos_local``
+    [batch, ring] int32: the sequence position held in each slot (-1 =
+    empty)."""
     def layer(i):
         n = min(cfg.window, buf) if cfg.is_local(i) else buf
+        if cfg.attention == "mla":
+            m = cfg.mla
+            return {"ckv": ((batch, n, m.kv_lora_rank), cfg.dtype),
+                    "kr": ((batch, n, m.qk_rope_dim), cfg.dtype)}
         s = ((batch, n, cfg.n_kv_heads, cfg.head_dim), cfg.dtype)
         return {"k": s, "v": s}
 
@@ -343,8 +457,8 @@ def cache_spec(cfg: LMConfig, batch: int, buf: int) -> dict:
 def init_cache(cfg: LMConfig, batch: int, buf: int, *, device=None
                ) -> dict:
     """An empty decode cache for ``batch`` request slots of ``buf``
-    positions on ``device`` (CUDA unless given): k, v zero, positions
-    -1."""
+    positions on ``device`` (CUDA unless given): k, v (or ckv, kr) zero,
+    positions -1."""
     dev = resolve_device(device)
 
     def make(leaf):
@@ -403,34 +517,42 @@ def _attn_cached(p: dict, cfg: LMConfig, h: torch.Tensor,
                  positions: torch.Tensor, window: int, lc: dict,
                  k_pos: torch.Tensor, prefill_len: int,
                  ring: _RingWrites | None = None) -> torch.Tensor:
-    """Attention through the cache ``lc`` (written in place). Prefill
-    (``prefill_len`` > 0, positions = arange(P)): write the fresh keys
-    (a ring only at ``ring``'s positions) and attend with them: an early
-    prefill query needs keys older than a ring holds. Decode (positions
-    [B, 1]): write, then attend over the cache through ``k_pos``."""
-    k_new, v_new = _gqa_project_kv(p["attn"], cfg, h, positions)
+    """Attention through the cache ``lc`` (written in place): k and v,
+    or MLA's latent ckv and kr. Prefill (``prefill_len`` > 0, positions
+    = arange(P)): write the fresh entries (a ring only at ``ring``'s
+    positions) and attend with them: an early prefill query needs keys
+    older than a ring holds. Decode (positions [B, 1]): write, then
+    attend over the cache through ``k_pos``."""
+    if cfg.attention == "mla":
+        new = dict(zip(("ckv", "kr"),
+                       _mla_project(p["attn"], cfg, h, positions)))
+    else:
+        new = dict(zip(("k", "v"),
+                       _gqa_project_kv(p["attn"], cfg, h, positions)))
     if prefill_len > 0:
-        if window > 0:
-            if ring is None:
-                ring = _RingWrites(_ring_prefill_pos(
-                    prefill_len, lc["k"].shape[1], h.shape[0], h.device))
-            ring.write(lc["k"], k_new)
-            ring.write(lc["v"], v_new)
-        else:
-            _write_full(lc["k"], k_new, 0)
-            _write_full(lc["v"], v_new, 0)
-        return _gqa_attention(p["attn"], cfg, h, positions, window,
-                              kv_override=(k_new, v_new),
-                              k_positions=positions)
-    if window > 0:
-        ring.write(lc["k"], k_new)
-        ring.write(lc["v"], v_new)
+        if window > 0 and ring is None:
+            ring = _RingWrites(_ring_prefill_pos(
+                prefill_len, lc[next(iter(new))].shape[1], h.shape[0],
+                h.device))
+        for name, t in new.items():
+            if window > 0:
+                ring.write(lc[name], t)
+            else:
+                _write_full(lc[name], t, 0)
+        kv, k_positions = tuple(new.values()), positions
     else:
         bi = torch.arange(h.shape[0], device=h.device)[:, None]
-        lc["k"][bi, positions.long()] = k_new.to(lc["k"].dtype)
-        lc["v"][bi, positions.long()] = v_new.to(lc["v"].dtype)
+        for name, t in new.items():
+            if window > 0:
+                ring.write(lc[name], t)
+            else:
+                lc[name][bi, positions.long()] = t.to(lc[name].dtype)
+        kv, k_positions = tuple(lc[name] for name in new), k_pos
+    if cfg.attention == "mla":
+        return _mla_attention(p["attn"], cfg, h, positions,
+                              cache_override=kv, k_positions=k_positions)
     return _gqa_attention(p["attn"], cfg, h, positions, window,
-                          kv_override=(lc["k"], lc["v"]), k_positions=k_pos)
+                          kv_override=kv, k_positions=k_positions)
 
 
 def _layer_apply_cached(p: dict, cfg: LMConfig, x: torch.Tensor,

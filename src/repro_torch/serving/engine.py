@@ -46,7 +46,8 @@ def _decode(params, tokens, cache, positions, cfg):
 
 def _splice(batch_cache: dict, one_cache: dict, slot: int) -> dict:
     """Copy a single-request cache into slot ``slot`` of the batch cache,
-    in place."""
+    in place: every leaf by name (a layer's k and v, or MLA's ckv and
+    kr; the position rows)."""
     for key, val in batch_cache.items():
         if key == "layers":
             for lb, lo in zip(val, one_cache["layers"]):

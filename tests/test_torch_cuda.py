@@ -45,7 +45,10 @@ from repro_torch.kernels.embedding_bag import ops as eb_ops, ref as eb_ref
 from repro_torch.kernels.multi_jump import ops as mj_ops, ref as mj_ref
 from repro_torch.kernels.segment_reduce import ops as sr_ops, ref as sr_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
-from repro_torch.configs import dcn_v2, gemma2_2b, qwen2_5_32b
+from repro_torch.configs import dcn_v2, gemma2_2b, grok_1_314b, \
+    minicpm3_4b, phi3_5_moe, qwen2_5_32b
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import recsys
 from repro_torch.models import transformer as T
 from repro_torch.serving import engine as E
@@ -860,18 +863,19 @@ def test_flash_attention_wrapper_rejects_bad_tensors(dev):
         fa_ops.flash_attention(q, k.cpu(), k.cpu())
 
 
-@pytest.mark.parametrize("mod", (gemma2_2b, qwen2_5_32b))
+@pytest.mark.parametrize("mod", (gemma2_2b, qwen2_5_32b, minicpm3_4b,
+                                 grok_1_314b, phi3_5_moe))
 def test_smoke_engine_on_card_matches_port_on_cpu(dev, mod):
     """The smoke-config engine (float32) on the card gives the port's
     CPU tokens, and every prefill launches the kernel once per layer."""
     cfg = mod.make_smoke_config()
     params = T.init(cfg, generator=torch.Generator().manual_seed(0),
                     device="cpu")
-    # non-zero norm weights: at the reference's zero init qwen2.5's
-    # logits are all 0
+    # non-zero norm weights: at the reference's zero init the logits of
+    # every model without gemma's 1 + norms are all 0
     g = torch.Generator().manual_seed(5)
     for name, t in T.flatten(params).items():
-        if "ln" in name or name == "final_norm":
+        if "ln" in name or name.endswith("norm"):
             t.normal_(0.0, 0.3, generator=g)
 
     def to_dev(tree):
@@ -894,6 +898,82 @@ def test_smoke_engine_on_card_matches_port_on_cpu(dev, mod):
         launches = fa_ops.KERNEL.launches - before
     assert launches == 5 * cfg.n_layers
     assert outs[1] == outs[0]
+
+
+@pytest.mark.parametrize("b,s,h,d,dv", [(1, 300, 40, 96, 64),
+                                        (2, 129, 8, 96, 64),
+                                        (1, 200, 4, 24, 16)])
+def test_flash_attention_padded_mla_shape_matches_plain(dev, b, s, h, d, dv):
+    """MLA's prefill (q / k head dim 96, v 64; the smoke config's 24 /
+    16) through ``layers.multi_head_attention``: zero-padded to 128 (32),
+    one launch of the body ``body_of`` names, within the Hopper body's
+    p-rounding gates (1 ulp + 1e-5 on the FMA body) of the plain version
+    of the padded call; the padded columns come back 0, and that plain
+    version equals the unpadded attention in f32."""
+    g = torch.Generator(dev).manual_seed(d + s)
+    q, k = (torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=g, device=dev).bfloat16()
+    dp = min(x for x in fa_ops.HEAD_DIMS if x >= d)
+    body = fa_ops.body_of(torch.bfloat16, dp)
+    assert body is (fa_ops.WGMMA if dp == 128 else fa_ops.FMA)
+    pad = [torch.nn.functional.pad(x, (0, dp - x.shape[-1]))
+           for x in (q, k, v)]
+    before = body.launches
+    pos = torch.arange(s, device=dev)
+    got = L.multi_head_attention(q, k, v, q_positions=pos, k_positions=pos,
+                                 sm_scale=d ** -0.5)
+    assert body.launches == before + 1 and got.shape == (b, s, h, dv)
+    full = fa_ops.flash_attention(*pad, sm_scale=d ** -0.5)
+    assert bool((full[..., dv:] == 0).all())
+    assert torch.equal(full[..., :dv], got)
+    kw = dict(sm_scale=d ** -0.5)
+    want = fa_ref.ref_flash_attention(*pad, **kw)
+    err = (full.float() - want.float()).abs()
+    if body is fa_ops.WGMMA:
+        tol = fa_ref.p_rounding_bound(*pad, **kw)
+        assert float(err.norm()) <= fa_ref.p_rounding_norm_bound(*pad, **kw)
+    else:
+        tol = fa_ref.ulp_bf16(want) + 1e-5
+    assert bool((err <= tol).all()), float((err - tol).max())
+    fold = lambda x: x.permute(0, 2, 1, 3).reshape(b * h, s, x.shape[-1])
+    plain = [torch.einsum("bqk,bkd->bqd", fa_ref.attention_probs(
+        fold(x_q), fold(x_k), sm_scale=d ** -0.5, causal=True),
+        fold(x_v).float()) for x_q, x_k, x_v in ((q, k, v), pad)]
+    assert float((plain[1][..., :dv] - plain[0]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("e,t,chunk", [(4, 38, 16384), (16, 4, 16384),
+                                       (8, 300, 128)])
+def test_moe_apply_on_card_matches_cpu(dev, e, t, chunk):
+    """bf16 ``moe_apply`` (float32 router) on the card against itself on
+    the CPU: the routing (experts, ranks, keep) equal, the output within
+    the bf16 forward gate (2e-2 of its largest |value|)."""
+    cfg = M.MoEConfig(num_experts=e, top_k=2, d_ff_expert=96,
+                      dispatch_chunk=chunk)
+    params = M.moe_params(64, cfg, torch.bfloat16,
+                          generator=torch.Generator().manual_seed(e),
+                          device="cpu")
+    x = torch.randn((1, t, 64), generator=torch.Generator().manual_seed(t)
+                    ).bfloat16()
+    outs, routes = [], []
+    route = M.route
+    for device in ("cpu", dev):
+        seen = []
+        M.route = lambda *a: seen.append(route(*a)) or seen[-1]
+        try:
+            out, aux = M.moe_apply({k: w.to(device) for k, w in
+                                    params.items()}, x.to(device), cfg)
+        finally:
+            M.route = route
+        outs.append((out.float().cpu(), float(aux)))
+        routes.append(seen)
+    for a, b in zip(*routes):
+        for key in ("gate_idx", "pos", "keep"):
+            assert torch.equal(a[key], b[key].cpu()), key
+    err = float((outs[1][0] - outs[0][0]).abs().max())
+    assert err <= 2e-2 * float(outs[0][0].abs().max()), err
+    assert abs(outs[1][1] - outs[0][1]) <= 1e-6
 
 
 # -- the dynamic engine (DynamicCC behind Solver.insert / delete) -------------

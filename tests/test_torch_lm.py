@@ -2,13 +2,14 @@
 reference's weights carried across (``params_from_reference``): the
 layers, ``forward``, ``forward_with_cache`` (prefill logits, every cache
 leaf, decode steps), ``generate`` and the continuous-batching
-``Engine`` on the gemma2-2b and qwen2.5-32b smoke configs, plus the
+``Engine`` on the smoke configs of the five LMs (GQA gemma2-2b and
+qwen2.5-32b, MLA minicpm3-4b, MoE grok-1-314b and phi3.5-moe), plus the
 configs, the cells and the entry points' device rule.
 
 The reference initialises every norm weight and QKV bias to 0, which
-leaves qwen2.5's logits all zero (its norms have no ``1 +``); the tests
-draw those leaves from a seeded normal instead, the same numbers for
-both packages, so that every parameter takes part.
+leaves the logits of every model without gemma's ``1 +`` norms all
+zero; the tests draw those leaves from a seeded normal instead, the
+same numbers for both packages, so that every parameter takes part.
 
 Tolerances: float32 layers 1e-5 and logits 1e-4 (sums in another order;
 the port's prefill attention is the flash kernel's plain version, the
@@ -31,19 +32,24 @@ import torch
 from repro.configs import get_arch as jget
 from repro.configs import lm_common as jlc
 from repro.models import layers as JL
+from repro.models import moe as JM
 from repro.models import transformer as JT
 from repro.serving import engine as JE
 from repro_torch.configs import get_arch as tget
+from repro_torch.kernels.flash_attention.ref import ulp_bf16 as fa_ulp
 from repro_torch.configs import lm_common as tlc
 from repro_torch.launch import steps
 from repro_torch.models import layers as TL
+from repro_torch.models import moe as TM
 from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as TE
 
-ARCHS = ("gemma2-2b", "qwen2.5-32b")
+ARCHS = ("gemma2-2b", "qwen2.5-32b", "minicpm3-4b", "grok-1-314b",
+         "phi3.5-moe-42b-a6.6b")
+NEW_ARCHS = ARCHS[2:]
 JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 PERTURBED = ("ln1", "ln2", "ln1_post", "ln2_post", "final_norm", "bq", "bk",
-             "bv")
+             "bv", "q_norm", "kv_norm")
 
 
 def _np(x) -> np.ndarray:
@@ -207,14 +213,48 @@ def test_attention_routes_prefill_to_the_flash_kernel(monkeypatch):
 # Model
 # --------------------------------------------------------------------------
 
+def _reference_router_inputs(jparams, toks, jcfg):
+    """The reference's logits and the bf16 token rows its MoE router saw,
+    chunk by chunk in layer order (recorded by a debug callback)."""
+    seen = []
+    dispatch = JM._dispatch_chunk
+
+    def record(params, xt, cfg, cap):
+        jax.debug.callback(lambda a: seen.append(np.asarray(a)), xt,
+                           ordered=True)
+        return dispatch(params, xt, cfg, cap)
+
+    JM._dispatch_chunk = record
+    try:
+        want, _ = JT.forward(jparams, jnp.asarray(toks), jcfg)
+        jax.effects_barrier()
+    finally:
+        JM._dispatch_chunk = dispatch
+    return want, seen
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-def test_forward_matches_reference(arch, dtype, tol):
+def test_forward_matches_reference(arch, dtype, tol, monkeypatch):
+    """bfloat16 MoE: the two packages round the router's input at other
+    sites (one bf16 ulp apart), which flips a top-2 choice where two
+    experts' probabilities nearly tie (grok-1 smoke, layer 0: 0.28933 /
+    0.28897; ROADMAP queue C); the port's router then takes the
+    reference's bf16 router input, everything else its own, at the same
+    tolerance. ``tests/test_torch_moe.py`` holds the routing itself
+    equal on one input."""
     jcfg, jparams, tcfg, tparams = _models(arch, dtype)
     toks = np.random.default_rng(1).integers(0, tcfg.vocab, (2, 19)).astype(
         np.int32)
-    want, _ = JT.forward(jparams, jnp.asarray(toks), jcfg)
+    if tcfg.moe is not None and dtype == torch.bfloat16:
+        want, seen = _reference_router_inputs(jparams, toks, jcfg)
+        assert len(seen) == tcfg.n_layers
+        inputs, route = iter(seen), TM.route
+        monkeypatch.setattr(TM, "route", lambda p, xt, cfg, cap: route(
+            p, TL.from_numpy(next(inputs)), cfg, cap))
+    else:
+        want, _ = JT.forward(jparams, jnp.asarray(toks), jcfg)
     got = TT.forward(tparams, torch.from_numpy(toks), tcfg)
     assert got.dtype == torch.float32
     assert got.shape == (2, 19, tcfg.padded_vocab)
@@ -224,6 +264,45 @@ def test_forward_matches_reference(arch, dtype, tol):
     else:   # normwise: one bf16 ulp at |logit| ~ 4 is already 0.031
         err = np.abs(got.numpy() - _np(want)).max()
         assert err <= tol * np.abs(_np(want)).max(), err
+
+
+def test_bf16_moe_routing_differs_only_at_a_near_tie(monkeypatch):
+    """Why the bf16 MoE forward above takes the reference's router
+    input: each package's own bf16 forward of the grok-1 smoke config
+    (phi3.5-moe's smoke config is the same) routes the same up to the
+    first layer whose choices differ; there the two router inputs are
+    within 2 bf16 ulps of each row's largest |value| (the packages
+    round at other sites), and every row whose top-2 differs
+    has two of its three largest probabilities within 2e-3: a near-tie
+    that one rounding flips."""
+    jcfg, jparams, tcfg, tparams = _models("grok-1-314b", torch.bfloat16)
+    toks = np.random.default_rng(1).integers(0, tcfg.vocab, (2, 19)).astype(
+        np.int32)
+    _, seen = _reference_router_inputs(jparams, toks, jcfg)
+    ours, route = [], TM.route
+
+    def record(p, xt, cfg, cap):
+        ours.append((xt.float().numpy(), p["router"]))
+        return route(p, xt, cfg, cap)
+
+    monkeypatch.setattr(TM, "route", record)
+    TT.forward(tparams, torch.from_numpy(toks), tcfg)
+    assert len(ours) == len(seen) == tcfg.n_layers
+    for ref_x, (x, router) in zip(seen, ours):
+        ref_x = ref_x.astype(np.float32)
+        k = tcfg.moe.top_k
+        probs = [np.asarray(jax.nn.softmax(jnp.asarray(a) @ jnp.asarray(
+            router.numpy()), axis=-1)) for a in (ref_x, x)]
+        idx = [np.asarray(jax.lax.top_k(jnp.asarray(p), k)[1])
+               for p in probs]
+        rows = np.nonzero((idx[0] != idx[1]).any(axis=1))[0]
+        if rows.size == 0:
+            continue
+        ulp = fa_ulp(torch.from_numpy(np.abs(ref_x).max(axis=1))).numpy()
+        assert (np.abs(ref_x - x).max(axis=1) <= 2 * ulp).all()
+        top3 = -np.sort(-probs[0][rows], axis=1)[:, :k + 1]
+        assert (np.diff(-top3, axis=1).min(axis=1) <= 2e-3).all(), top3
+        break
 
 
 def _ref_leaf(jcache, cfg, i: int, name: str):
@@ -337,7 +416,7 @@ CONFIG_FIELDS = ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
                  "head_dim", "d_ff", "vocab", "qkv_bias", "rope_theta",
                  "norm_eps", "attn_softcap", "final_softcap", "window",
                  "layer_pattern", "attention", "post_norm", "embed_scale",
-                 "tie_embed", "act", "padded_vocab", "q_dim")
+                 "tie_embed", "act", "padded_vocab", "q_dim", "o_in_dim")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -346,6 +425,11 @@ def test_configs_field_equal(arch, make):
     j, t = getattr(jget(arch), make)(), getattr(tget(arch), make)()
     for f in CONFIG_FIELDS:
         assert getattr(t, f) == getattr(j, f), f
+    for f in ("mla", "moe"):
+        sub_t, sub_j = getattr(t, f), getattr(j, f)
+        assert (sub_t is None) == (sub_j is None), f
+        if sub_t is not None:
+            assert dataclasses.asdict(sub_t) == dataclasses.asdict(sub_j), f
     assert JAX_DTYPE[t.dtype] == j.dtype
     assert TT.param_count(t) == JT.param_count(j)
     mod, ref = tget(arch), jget(arch)
@@ -357,12 +441,20 @@ def test_configs_field_equal(arch, make):
 
 
 def test_unported_lm_configs_raise():
-    with pytest.raises(NotImplementedError, match="MLA"):
+    """What is still unported: the GNN ids (``get_arch`` and
+    ``build_cell``) and every LM's train cell. MLA and MoE configs
+    build; an MLA config without its ``MLAConfig`` is refused."""
+    for arch in ("nequip", "gatedgcn", "graphsage-reddit", "gin-tu"):
+        with pytest.raises(NotImplementedError, match="GNN"):
+            tget(arch)
+        with pytest.raises(NotImplementedError, match="GNN"):
+            steps.build_cell(arch, "train_4k", device="cpu")
+    for arch in ARCHS:
+        with pytest.raises(NotImplementedError, match="LM training"):
+            steps.build_cell(arch, "train_4k", device="cpu")
+    with pytest.raises(ValueError, match="MLAConfig"):
         TT.LMConfig(name="x", n_layers=2, d_model=8, n_heads=2, n_kv_heads=1,
                     head_dim=4, d_ff=8, vocab=16, attention="mla")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.LMConfig(name="x", n_layers=2, d_model=8, n_heads=2, n_kv_heads=1,
-                    head_dim=4, d_ff=8, vocab=16, moe=object())
 
 
 def _spec_tree(struct):
@@ -483,3 +575,174 @@ def test_lm_entry_points_refuse_cpu_fallback(monkeypatch):
 def test_lm_train_cell_raises():
     with pytest.raises(NotImplementedError, match="LM training"):
         steps.build_cell("gemma2-2b", "train_4k", device="cpu")
+
+
+# --------------------------------------------------------------------------
+# MLA (minicpm3-4b) and the MoE archs: attention route, parts, specs, cells
+# --------------------------------------------------------------------------
+
+FULL_PARAM_COUNTS = {"minicpm3-4b": 4_262_025_728,
+                     "phi3.5-moe-42b-a6.6b": 41_874_100_224,
+                     "grok-1-314b": 316_489_340_928}
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_full_param_count_equals_reference(arch):
+    """The full configs' counts, the reference's from ``jax.eval_shape``
+    (nothing allocated on either side)."""
+    want = FULL_PARAM_COUNTS[arch]
+    assert JT.param_count(jget(arch).make_config()) == want
+    assert TT.param_count(tget(arch).make_config()) == want
+
+
+def test_mla_prefill_reaches_the_flash_kernel_padded(monkeypatch):
+    """The smoke MLA prefill (q / k head dim 24, v 16) goes to the flash
+    wrapper zero-padded to d = 32 with the scale of d = 24, once per
+    layer, never to ``attention_dense``; its decode goes to the dense
+    path."""
+    _, _, tcfg, tparams = _models("minicpm3-4b")
+    calls = []
+    flash = TL.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls.append((q.shape[-1], k.shape[-1], v.shape[-1], kw))
+        return flash(q, k, v, **kw)
+
+    def no_dense(*a, **kw):
+        raise AssertionError("MLA prefill reached attention_dense")
+
+    monkeypatch.setattr(TL, "flash_attention", spy)
+    monkeypatch.setattr(TL, "attention_dense", no_dense)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, tcfg.vocab, (2, 10)).astype(np.int32))
+    cache = TT.init_cache(tcfg, 2, 16, device="cpu")
+    TT.forward_with_cache(tparams, toks, tcfg, cache,
+                          torch.arange(10, dtype=torch.int32))
+    assert [c[:3] for c in calls] == [(32, 32, 32)] * tcfg.n_layers
+    assert all(c[3] == dict(sm_scale=24 ** -0.5, causal=True, window=0,
+                            softcap=0.0) for c in calls)
+    with pytest.raises(AssertionError, match="attention_dense"):
+        TT.forward_with_cache(tparams, toks[:, :1], tcfg, cache,
+                              torch.full((2, 1), 10, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("d,dv,hkv", [(24, 16, 4), (96, 64, 2), (64, 64, 2),
+                                      (40, 40, 4)])
+def test_padded_flash_route_equals_dense_on_unpadded(d, dv, hkv):
+    """Head dims the kernel does not take (MLA's 96 / 64, the smoke
+    24 / 16, equal dims off the list) through the padded flash route
+    equal ``attention_dense`` on the unpadded tensors within f32 1e-6."""
+    q = torch.from_numpy(_rand((2, 33, 4, d), 20))
+    k = torch.from_numpy(_rand((2, 33, hkv, d), 21))
+    v = torch.from_numpy(_rand((2, 33, hkv, dv), 22))
+    pos = torch.arange(33, dtype=torch.int32)
+    got = TL.multi_head_attention(q, k, v, q_positions=pos, k_positions=pos,
+                                  sm_scale=d ** -0.5)
+    want = TL.attention_dense(q, k, v, q_positions=pos, k_positions=pos,
+                              window=0, attn_softcap=0.0, scale=d ** -0.5)
+    assert got.shape == (2, 33, 4, dv)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
+                               rtol=1e-6)
+
+
+def _mla_inputs(seed: int):
+    jcfg, jparams, tcfg, tparams = _models("minicpm3-4b")
+    jp = jax.tree.map(lambda a: a[0], jparams["blocks"]["attn"])
+    return jcfg, jp, tcfg, tparams["layers"][0]["attn"], _rand(
+        (2, 12, tcfg.d_model), seed)
+
+
+def test_mla_project_and_prefill_attention_match_reference():
+    jcfg, jp, tcfg, tp, x = _mla_inputs(30)
+    pos = np.arange(12, dtype=np.int32)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    for want, got in zip(JT._mla_project(jp, jcfg, jx, jnp.asarray(pos)),
+                         TT._mla_project(tp, tcfg, tx, torch.from_numpy(pos))):
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+    want = JT._mla_attention(jp, jcfg, jx, jnp.asarray(pos))
+    got = TT._mla_attention(tp, tcfg, tx, torch.from_numpy(pos))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+def test_mla_decode_attention_over_a_cache_matches_reference():
+    """One query a request at per-request positions over a latent cache
+    of 12 slots with empty (-1) ones."""
+    jcfg, jp, tcfg, tp, x = _mla_inputs(31)
+    cpos = np.tile(np.arange(12, dtype=np.int32), (2, 1))
+    cpos[0, 7:] = -1
+    ckv, kr = JT._mla_project(jp, jcfg, jnp.asarray(x), jnp.asarray(cpos))
+    q_in = _rand((2, 1, tcfg.d_model), 32)
+    qpos = np.array([[6], [11]], np.int32)
+    want = JT._mla_attention(jp, jcfg, jnp.asarray(q_in), jnp.asarray(qpos),
+                             cache_override=(ckv, kr),
+                             k_positions=jnp.asarray(cpos))
+    got = TT._mla_attention(tp, tcfg, torch.from_numpy(q_in),
+                            torch.from_numpy(qpos),
+                            cache_override=(TL.from_numpy(ckv),
+                                            TL.from_numpy(kr)),
+                            k_positions=torch.from_numpy(cpos))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("shape", ("prefill_32k", "decode_32k", "long_500k",
+                                   "train_4k"))
+def test_new_arch_input_specs_match_reference(arch, shape):
+    """The MLA cache (``ckv``, ``kr``) and the GQA caches of the MoE
+    archs, layer by layer against the reference's stacked
+    ``cache_struct``."""
+    got = tget(arch).input_specs(shape)
+    want = _spec_tree(jget(arch).input_specs(shape))
+    assert got.keys() == want.keys()
+    for k in got:
+        if k != "cache":
+            assert got[k] == want[k]
+            continue
+        assert got[k].keys() == want[k].keys()
+        assert got[k]["pos"] == want[k]["pos"]
+        n = tget(arch).make_config().n_layers
+        assert len(got[k]["layers"]) == n
+        for lc in got[k]["layers"]:
+            assert lc.keys() == want[k]["layers"].keys()
+            for name, (s, dt) in lc.items():
+                assert ((n, *s), dt) == want[k]["layers"][name]
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_cells_build_with_float32_router(arch):
+    """Prefill, decode and long_500k cells build on the CPU (allocating
+    nothing); every parameter spec carries bf16 but the MoE router,
+    float32; long_500k is skipped with the reference's reason."""
+    cfg = tget(arch).make_config()
+    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+        cell = steps.build_cell(arch, shape, device="cpu")
+        assert cell.kind == tget(arch).step_kind(shape)
+        params = cell.args[0]
+        assert params == TT.param_specs(cfg)
+        for name, (_, dt) in params.items():
+            assert dt == (torch.float32 if name.endswith("moe.router")
+                          else torch.bfloat16), name
+    assert tget(arch).skip_reason("long_500k") == \
+        jget(arch).skip_reason("long_500k") is not None
+    if cfg.moe is not None:
+        assert params["layers.0.moe.w_gate"][0] == (
+            cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert)
+    else:
+        assert params["layers.0.attn.kv_b"][0] == (256, 40 * 128)
+
+
+def test_params_from_reference_keeps_the_float32_router():
+    jcfg, jparams, tcfg, tparams = _models("grok-1-314b")
+    tree = jax.tree.map(np.asarray, jparams)
+    assert tparams["layers"][1]["moe"]["router"].dtype == torch.float32
+    np.testing.assert_array_equal(tparams["layers"][1]["moe"]["w_down"],
+                                  tree["blocks"]["moe"]["w_down"][1])
+    jb, tb = _configs("grok-1-314b", torch.bfloat16)
+    btree = jax.tree.map(np.asarray, JT.init(jax.random.PRNGKey(0), jb))
+    got = TT.params_from_reference(btree, tb, device="cpu")
+    assert got["layers"][0]["moe"]["router"].dtype == torch.float32
+    assert got["layers"][0]["moe"]["w_up"].dtype == torch.bfloat16
+    btree["blocks"]["moe"]["router"] = btree["blocks"]["moe"][
+        "router"].astype(jnp.bfloat16)
+    with pytest.raises(ValueError, match="router"):
+        TT.params_from_reference(btree, tb, device="cpu")

@@ -49,6 +49,9 @@ def test_import_loads_no_jax_and_no_reference():
             "import repro_torch.connectivity.service, repro_torch.obs.__main__\n"
             "import repro_torch.core.distributed, repro_torch.launch.mesh\n"
             "import repro_torch.fleet, repro_torch.configs.cc_graphs\n"
+            "import repro_torch.models.moe, repro_torch.configs.minicpm3_4b\n"
+            "import repro_torch.configs.grok_1_314b\n"
+            "import repro_torch.configs.phi3_5_moe\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(bad)\n"
