@@ -278,6 +278,30 @@ norm weights N(1, 0.1²) from seed 1), one model on the card at a time:
     top-2. The prefill's device ms by op: the expert ``bmm``s, the
     dispatch / combine index ops, K6.
 
+then DCN-v2 training at full width (the ``train_batch`` cell: B =
+65,536, 311,334,793 bf16 parameters, AdamW lr 1e-3; ``recsys.init``
+seed 0, ``recsys_batch(1, i, ...)``):
+
+24. one K5-forward / K4-backward pass against the plain route (the
+    plain lookup, the same tower, the table's gradient as a
+    deterministic ``index_add_`` into fp32, then the cast): the loss and
+    the tower's gradients equal, the table gradient on K4's sorted body
+    bit-equal and equal call to call, K4's atomic body on the same rows
+    within one bf16 ulp; K5 and both K4 bodies timed at this shape
+    beside their plain versions and ``F.embedding_bag`` / ``index_add_``
+    (default and deterministic). Then six train steps, launch counts
+    set to 0 just before and read just after (K5 twice a step, K4's
+    sorted body once, its atomic body never), every loss and grad norm
+    printed, finite, the last loss below the first; ``run_with_restarts``
+    with a ``SimulatedFailure`` at step 4 and checkpoints every 3 (keep
+    1): one restart, params, m, v and step bit-equal to the
+    uninterrupted run; one full-width save and restore timed and
+    compared; the step timed (CUDA events, median of 3 after a warm-up,
+    host batch in) with samples/s, its device ms by op and idle share
+    (``torch.profiler``) and peak memory; last, ``python -m
+    repro_torch.launch.train --arch dcn-v2 --steps 30 --fail-at 15``
+    in-process on the card returns 0 after one restart.
+
 It prints informative lines, then one JSON line of per-kernel numbers,
 then, as its last line, ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or away from the repository, it exits non-zero and prints
@@ -285,6 +309,7 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -3213,6 +3238,355 @@ def mla_moe_phases(torch, np, dev, rows: dict, card: str) -> dict:
     return out
 
 
+# DCN-v2 training (phase 24): the train_batch cell at full width, six
+# steps from recsys.init (seed 0) on recsys_batch(1, i, ...), and the
+# restart run with its failure and checkpoints
+TRAIN_STEPS = 6
+TRAIN_FAIL_AT = 4                  # the state's step when the failure hits
+TRAIN_CKPT_EVERY = 3
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch's deterministic algorithms on (``index_add_`` on the card
+    then sorts its ids and adds each row's terms in order)."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def train_phases(torch, np, dev, rows: dict, card: str) -> dict:
+    """Phase 24: DCN-v2's ``train_batch`` cell at full width. Adds a
+    ``train`` entry to the ``embedding_bag``, ``segment_reduce`` and
+    ``segment_reduce_atomic`` rows; returns the step's times."""
+    import gc
+    import io
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import dcn_v2
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.kernels import autograd
+    from repro_torch.kernels.embedding_bag import ops as eb_ops, \
+        ref as eb_ref
+    from repro_torch.kernels.flash_attention.ref import ulp_bf16
+    from repro_torch.kernels.segment_reduce import ops as sr_ops, \
+        ref as sr_ref
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import recsys
+    from repro_torch.train import checkpoint
+    from repro_torch.train.fault_tolerance import (SimulatedFailure,
+                                                   run_with_restarts)
+    from repro_torch.train.optimizer import named
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dcn_v2.make_config()
+    b = dcn_v2.SHAPE_DEFS["train_batch"]["batch"]
+    v_rows, dim = cfg.total_rows, cfg.embed_dim
+    cell = steps.build_cell("dcn-v2", "train_batch", device=dev)
+
+    def fresh():
+        return cell.init_state(recsys.init(
+            cfg, generator=torch.Generator(dev).manual_seed(0), device=dev,
+            requires_grad=True))
+
+    def leaves(state):
+        params = named(state["params"])
+        return {**{f"params.{n}": p for n, p in params.items()},
+                **{f"{k}.{n}": t for k, sub in state["opt"].items()
+                   for n, t in sub.items()}, "step": state["step"]}
+
+    def equal_states(a, c) -> bool:
+        la, lc = leaves(a), leaves(c)
+        return la.keys() == lc.keys() and all(
+            la[n].dtype == lc[n].dtype and torch.equal(la[n], lc[n])
+            for n in la)
+
+    host = [recsys_batch(1, i, b, cfg.n_dense, cfg.table_sizes)
+            for i in range(TRAIN_STEPS)]
+    state = fresh()
+    torch.cuda.synchronize()
+    print(f"phase 24: dcn-v2 train_batch ({card}): B={b}, "
+          f"{recsys.param_count(cfg)} parameters in {cfg.dtype}, AdamW lr "
+          f"1e-3; init and {TRAIN_STEPS} host batches "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- 24a. one K5-forward / K4-backward pass against the plain route ---
+    model = state["params"]
+    params = named(model)
+    tower = [n for n in params if n != "table"]
+    bd = {k: torch.from_numpy(v).to(dev) for k, v in host[0].items()}
+    flat = (bd["sparse_idx"] + model.row_offsets).reshape(-1, 1).contiguous()
+    ids = flat[:, 0]
+    n_look = ids.shape[0]
+    eb_ops.KERNEL.launches = sr_ops.KERNEL.launches = 0
+    loss_k = recsys.loss_fn(model, bd)
+    grads = dict(zip(params, torch.autograd.grad(loss_k,
+                                                 list(params.values()))))
+    torch.cuda.synchronize()
+    pass_launches = {"embedding_bag": eb_ops.KERNEL.launches,
+                     "sorted": sr_ops.SORTED.launches,
+                     "atomic": sr_ops.ATOMIC.launches}
+    check(pass_launches == {"embedding_bag": 2, "sorted": 1, "atomic": 0},
+          f"one train pass launched {pass_launches}, expected K5 twice "
+          "(the lookup, the gather of the gradient rows) and K4's sorted "
+          "body once")
+    # the plain route: the plain lookup and the same tower; the table's
+    # gradient an index_add_ of the lookup's gradient rows into fp32, then
+    # the cast (deterministic: each row's terms added in order)
+    table = model.table.detach()
+    emb = eb_ref.ref_embedding_bag(table, flat).requires_grad_(True)
+    dense = bd["dense"].to(cfg.dtype) * model.dense_norm["w"] \
+        + model.dense_norm["b"]
+    x0 = torch.cat([dense, emb.reshape(b, -1)], dim=-1)
+    loss_p = recsys.bce_loss(recsys.tower(model, x0), bd["label"])
+    g = torch.autograd.grad(loss_p, [emb] + [params[n] for n in tower])
+    g_emb = g[0].contiguous()
+    with deterministic(torch):
+        table_plain = sr_ref.ref_segment_reduce(g_emb, ids, v_rows)
+    table_nondet = sr_ref.ref_segment_reduce(g_emb, ids, v_rows)
+    table_atomic = sr_ops.segment_reduce(g_emb, ids, v_rows)
+    torch.cuda.synchronize()
+    check(torch.equal(loss_k, loss_p), "the kernel route's loss differs "
+                                       "from the plain route's")
+    for n, gp in zip(tower, g[1:]):
+        check(torch.equal(grads[n], gp), f"the gradient of {n} differs "
+                                         "between the two routes")
+    check(torch.equal(grads["table"], table_plain),
+          "the table's gradient on K4's sorted body is not bit-equal to the "
+          "plain route's (deterministic index_add_ into fp32, then the cast)")
+    again = autograd.table_grad(g_emb, flat, v_rows)
+    torch.cuda.synchronize()
+    check(torch.equal(again, grads["table"]),
+          "two calls of the sorted route give other table gradients")
+
+    def ulps(x):
+        return float(((x.float() - table_plain.float()).abs()
+                      / ulp_bf16(table_plain)).max())
+    atomic_ulps, nondet_ulps = ulps(table_atomic), ulps(table_nondet)
+    check(atomic_ulps <= 1.0, f"K4's atomic body is {atomic_ulps} ulp from "
+                              "the plain table gradient")
+    counts = torch.bincount(ids.long(), minlength=v_rows)
+    hot = int(counts.max())
+    touched = int((counts > 0).sum())
+    print(f"gradient parity ({card}): loss and the {len(tower)} tower "
+          "gradients equal; the table gradient on K4's sorted body "
+          "bit-equal to the deterministic plain route, and call to call; "
+          f"atomic body {atomic_ulps} ulp, default (atomic) index_add_ "
+          f"{nondet_ulps} ulp; {n_look} lookups over {touched} rows, the "
+          f"hottest row {hot} times")
+    del table_atomic, table_nondet, again, grads, g, emb, x0, loss_k, loss_p
+
+    # K5 and K4 at the train shape: the forward lookup, the backward's sum
+    esize = table.element_size()
+    with torch.no_grad():
+        sorted_ids, order = torch.sort(ids, stable=True)
+        src = order.to(torch.int32)[:, None].contiguous()
+        rows_sorted = eb_ops.embedding_bag(g_emb, src)
+        fwd_got = eb_ops.embedding_bag(table, flat)
+        fwd_want = eb_ref.ref_embedding_bag(table, flat)
+        torch.cuda.synchronize()
+        check(torch.equal(fwd_got, fwd_want), "K5 at the train shape differs "
+                                              "from the gather")
+        ids64 = ids.long()
+        k5_bound, k5_by = bound(n_look * (4 + dim * esize)
+                                + n_look * dim * esize, n_look * dim)
+        k4_bound, k4_by = bound(n_look * dim * esize + 4 * n_look
+                                + v_rows * dim * esize, n_look * dim)
+
+        def index_add_fp32():
+            return torch.zeros((v_rows, dim), dtype=torch.float32,
+                               device=dev).index_add_(
+                0, ids64, g_emb.float()).to(g_emb.dtype)
+
+        def index_add_fp32_det():
+            with deterministic(torch):
+                return index_add_fp32()
+
+        shape = (f"train_batch: {n_look} lookups (B={b} x 26, bags of 1) "
+                 f"into {v_rows} x {dim} {table.dtype}")
+        k5 = dict(shape=shape + " forward", max_abs_err=float_err(
+            fwd_got, fwd_want),
+            ms=time_ms(torch, lambda: eb_ops.embedding_bag(table, flat)),
+            plain_ms=time_ms(torch, lambda: eb_ref.ref_embedding_bag(
+                table, flat)),
+            library_ms=time_ms(torch, lambda: F.embedding_bag(
+                flat.long(), table, mode="sum")),
+            library="F.embedding_bag(mode='sum')",
+            bound_ms=k5_bound, bound_by=k5_by,
+            gather_ms=time_ms(torch, lambda: eb_ops.embedding_bag(g_emb,
+                                                                  src)))
+        k4_common = dict(
+            plain_ms=time_ms(torch, lambda: sr_ref.ref_segment_reduce(
+                g_emb, ids, v_rows)),
+            library_ms=time_ms(torch, index_add_fp32),
+            library="index_add_ of the fp32 rows on fp32 zeros, then the "
+                    "cast (torch's default, atomic)",
+            library_deterministic_ms=time_ms(torch, index_add_fp32_det),
+            bound_ms=k4_bound, bound_by=k4_by, hottest_row=hot,
+            rows_touched=touched)
+        k4 = dict(shape=shape + " backward, sorted ids", max_abs_err=0.0,
+                  ms=time_ms(torch, lambda: sr_ops.segment_reduce(
+                      rows_sorted, sorted_ids, v_rows,
+                      indices_are_sorted=True)),
+                  sort_ms=time_ms(torch, lambda: torch.sort(ids,
+                                                            stable=True)),
+                  route_ms=time_ms(torch, lambda: autograd.table_grad(
+                      g_emb, flat, v_rows)), **k4_common)
+        k4_atomic = dict(shape=shape + " backward, the atomic body",
+                         max_ulp=atomic_ulps,
+                         ms=time_ms(torch, lambda: sr_ops.segment_reduce(
+                             g_emb, ids, v_rows)), **k4_common)
+    print(f"K5 forward at the train shape ({card}): {k5}")
+    print(f"K4 sorted body at the train shape ({card}): {k4}")
+    print(f"K4 atomic body at the train shape ({card}): {k4_atomic}")
+    del rows_sorted, fwd_got, fwd_want, table_plain, g_emb, src, order
+
+    # -- 24b. six train steps on the main path, counts set to 0 just before
+    torch.cuda.synchronize()
+    pass_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    eb_ops.KERNEL.launches = sr_ops.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    metrics = [cell.step(state, batch)[1] for batch in host]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"embedding_bag": eb_ops.KERNEL.launches,
+                "sorted": sr_ops.SORTED.launches,
+                "atomic": sr_ops.ATOMIC.launches}
+    steps_peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    for i, (lo, gn) in enumerate(zip(losses, norms)):
+        print(f"train step {i + 1}: loss {lo:.6f} grad_norm {gn:.6f}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          "a train step's loss or grad norm is not finite")
+    check(losses[-1] < losses[0], f"the loss did not fall over "
+                                  f"{TRAIN_STEPS} steps: {losses}")
+    check(launches == {"embedding_bag": 2 * TRAIN_STEPS,
+                       "sorted": TRAIN_STEPS, "atomic": 0},
+          f"the train steps launched {launches}")
+    check(int(state["step"]) == TRAIN_STEPS, "the state's step")
+    print(f"train path ({TRAIN_STEPS} steps, {wall:.2f} s with the first "
+          f"call): launches {launches}; peak {steps_peak:.2f} GiB (the "
+          f"gradient-parity pass before it {pass_peak:.2f} GiB)")
+    clean = state
+
+    # -- 24c. the restart run, then one save and one restore --------------
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ck_phase24_", dir=build)
+    try:
+        tripped = {"done": False}
+
+        def step_fn(s, batch):
+            if int(s["step"]) == TRAIN_FAIL_AT and not tripped["done"]:
+                tripped["done"] = True
+                raise SimulatedFailure(f"injected at step {TRAIN_FAIL_AT}")
+            return cell.step(s, batch)
+
+        t0 = time.perf_counter()
+        report = run_with_restarts(
+            init_state_fn=fresh, step_fn=step_fn,
+            stream_fn=lambda start: iter(host[start:]),
+            total_steps=TRAIN_STEPS, ckpt_dir=tmp,
+            ckpt_every=TRAIN_CKPT_EVERY, keep=1)
+        torch.cuda.synchronize()
+        restart_s = time.perf_counter() - t0
+        check(report.restarts == 1 and report.steps_run == TRAIN_STEPS
+              + TRAIN_FAIL_AT - TRAIN_CKPT_EVERY,
+              f"restart run: {report.restarts} restarts, "
+              f"{report.steps_run} steps")
+        check(equal_states(report.final_state, clean),
+              "the restarted run's params, m, v or step differ from the "
+              "uninterrupted run's")
+        check(sorted(os.listdir(tmp)) == [f"step_{TRAIN_STEPS:08d}"],
+              f"retention kept {sorted(os.listdir(tmp))}")
+        del report
+        t0 = time.perf_counter()
+        path = checkpoint.save(tmp, clean, TRAIN_STEPS + 1, keep=1)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+        like = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.restore(tmp, like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(equal_states(like, clean), "a restored checkpoint differs "
+                                         "from the saved state")
+        del like
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"restart parity ({card}): {TRAIN_STEPS} steps with a failure at "
+          f"step {TRAIN_FAIL_AT}, checkpoints every {TRAIN_CKPT_EVERY} "
+          f"(keep 1): 1 restart, params, m, v and step bit-equal to the "
+          f"uninterrupted run ({restart_s:.1f} s); checkpoint "
+          f"{nbytes / 1e9:.3f} GB, save {save_s:.2f} s, restore "
+          f"{restore_s:.2f} s")
+
+    # -- 24d. step times, the device's split, memory -----------------------
+    batch = host[0]
+    step_ms = time_ms(torch, lambda: cell.step(clean, batch))
+    from torch.autograd import DeviceType
+    prof = profiled(torch, lambda: cell.step(clean, batch))
+    ev = [e for e in prof.key_averages()
+          if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    times = {
+        "step_ms": step_ms,
+        "samples_per_s": b / step_ms * 1e3,
+        "device_ms_per_step": device_ms,
+        "idle_share": 1 - device_ms / step_ms if ev else None,
+        "top_device_ops": top_device_ops(ev, 1, n=12),
+        "losses": losses, "grad_norms": norms,
+        "steps_peak_gib": steps_peak, "parity_pass_peak_gib": pass_peak,
+        "restart_run_s": restart_s, "checkpoint_gb": nbytes / 1e9,
+        "save_s": save_s, "restore_s": restore_s,
+    }
+    print(f"train step ({card}): {step_ms:.3f} ms (CUDA events, median of 3 "
+          f"after a warm-up, host batch in), {times['samples_per_s']:.0f} "
+          f"samples/s; device {device_ms:.3f} ms, idle share "
+          f"{times['idle_share']}; by op {times['top_device_ops']}")
+
+    # -- 24e. the launcher, in-process on the card -------------------------
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(["--arch", "dcn-v2", "--steps", "30",
+                                "--fail-at", "15"])
+    out = out.getvalue().strip()
+    print(out)
+    check(rc == 0 and " 1 restarts" in out and "on cuda" in out,
+          f"the launcher returned {rc}: {out!r}")
+
+    train_rows = {"embedding_bag": dict(k5, launches=launches[
+        "embedding_bag"], launches_per_step=2),
+        "segment_reduce": dict(k4, launches=launches["sorted"],
+                               launches_per_step=1),
+        "segment_reduce_atomic": dict(k4_atomic, launches=launches[
+            "atomic"], launches_per_step=0)}
+    for name, entry in train_rows.items():
+        rows[name]["train"] = entry
+    del clean, state, model, params, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    times["phase_peak_gib"] = max(pass_peak,
+                                  torch.cuda.max_memory_allocated() / 2**30)
+    times["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 24: {times['phase_s']:.1f} s, peak "
+          f"{times['phase_peak_gib']:.2f} GiB")
+    return {"dcn-v2 train_batch": times}
+
+
 def main() -> int:
     # the one torch.compile (phase 11's flex_attention yardstick) keeps
     # its caches in the checkout's build directory and compiles in-process
@@ -3636,6 +4010,9 @@ def main() -> int:
     # -- 22.-23. the MLA and MoE LMs, one model on the card at a time --------
     del graphs, oracles, scans, results, flat
     e2e.update(mla_moe_phases(torch, np, dev, rows, card))
+
+    # -- 24. DCN-v2 training -------------------------------------------------
+    e2e.update(train_phases(torch, np, dev, rows, card))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -29,7 +29,7 @@ _UNPORTED = {
     "gin-tu": "gnn",
 }
 _QUEUE = {
-    "gnn": "ROADMAP A11, GNN forward through the segment_reduce kernel",
+    "gnn": "ROADMAP A11.4, GNN forward through the segment_reduce kernel",
 }
 _MODULES = {"qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
             "gemma2-2b": "repro_torch.configs.gemma2_2b",

@@ -7,7 +7,7 @@ width with the depth cut to 6 of 64 layers (31,130,499,072 parameters,
 62.3 GB); the smoke config carries the tests. Its prefill attention is
 48 query / 8 kv heads of 128, the flash kernel's Hopper body. The
 optimizer settings of the reference's config (bf16 moments, 16
-accumulation steps) come with LM training (ROADMAP A11.2-3)."""
+accumulation steps) come with LM training (ROADMAP A11.3)."""
 from __future__ import annotations
 
 import torch

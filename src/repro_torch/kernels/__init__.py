@@ -38,6 +38,10 @@ Kernel inventory:
                       bfloat16 at head dim 64-256, an fp32-FMA body for
                       the rest.
 
+``autograd.py`` pairs the two recsys kernels for training: the
+lookup's table gradient is a segment sum, the segment sum's gradient a
+lookup.
+
 Build: ``nvcc`` compiles each source into its own shared library (one
 process per source, all started together) under
 ``build/repro_torch_kernels/<hash of the sources and flags>/`` at the

@@ -1,12 +1,18 @@
 """Per-(arch × shape) step builders, the port of ``repro.launch.steps``
-for the serving steps of the recsys and LM families and the paper's
-multi-shard CC on the Table I graphs.
+for the recsys family (training and serving), the LM serving steps and
+the paper's multi-shard CC on the Table I graphs.
 
 ``build_cell(arch_id, shape, device=...)`` returns a ``Cell``: the step
 callable and the ``(shape, dtype)`` specs of its arguments. Building a
 cell allocates nothing. A step takes the model and host (numpy) inputs,
 moves the inputs to the cell's device and runs there:
 
+  * ``train``     — ``step(state, batch)`` -> (state, {"loss",
+                    "grad_norm"}): one AdamW step (lr 1e-3, as the
+                    reference's ``_build_recsys`` sets it) on a
+                    ``train.train_state`` state, written in place;
+                    ``cell.init_state(model)`` makes that state over a
+                    trainable model;
   * ``serve``     — ``step(model, batch)`` -> logits [B];
   * ``retrieval`` — ``step(model, batch, candidate_ids)`` -> scores [N];
   * ``prefill``   — ``step(params, tokens, cache)`` -> (logits [B, S, V],
@@ -22,9 +28,10 @@ moves the inputs to the cell's device and runs there:
 The cache is a device tree (``transformer.init_cache``), updated in
 place.
 
-No shardings and no donation: the model cells run on one device; the
-``cc`` cell splits its edges over a ``launch.mesh.Mesh`` of slots (one
-slot on the device when no mesh is given).
+No shardings: the model cells run on one device, and the train step's
+in-place update stands in for donation. The ``cc`` cell splits its
+edges over a ``launch.mesh.Mesh`` of slots (one slot on the device when
+no mesh is given).
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ from repro_torch.core.segmentation import plan_segmentation
 from repro_torch.graphs.device import resolve_device
 from repro_torch.models import recsys
 from repro_torch.models import transformer as T
+from repro_torch.train import train_state
+from repro_torch.train.optimizer import AdamWConfig, adamw
 
 
 @dataclasses.dataclass
@@ -48,6 +57,7 @@ class Cell:
     kind: str
     step: Callable
     args: tuple                    # (shape, dtype) spec trees
+    init_state: Callable | None = None     # train: model -> TrainState
 
 
 def _on(x, device: torch.device) -> torch.Tensor:
@@ -61,16 +71,21 @@ def _batch_on(batch: dict, device: torch.device) -> dict:
 def _build_recsys(arch_id: str, shape: str, device: torch.device) -> Cell:
     mod = get_arch(arch_id)
     kind = mod.step_kind(shape)
-    if kind == "train":
-        raise NotImplementedError(
-            f"{arch_id} {shape}: training is not ported yet (ROADMAP "
-            "A11, recsys training: the embedding_bag and segment_reduce "
-            "kernels need a torch.autograd.Function with a kernel "
-            "backward)")
     cfg = mod.make_config()
     specs = mod.input_specs(shape)
     params = {n: (s, cfg.dtype)
               for n, s in recsys.param_shapes(cfg).items()}
+    if kind == "train":
+        opt = adamw(AdamWConfig(lr=1e-3))
+        raw = train_state.make_train_step(recsys.loss_fn, opt)
+
+        def step(state, batch):
+            return raw(state, _batch_on(batch, device))
+        state = {"params": params, "opt": {"m": params, "v": params},
+                 "step": ((), torch.int32)}
+        return Cell(arch_id, shape, kind, step,
+                    args=(state, specs["batch"]),
+                    init_state=lambda model: train_state.create(model, opt))
     if kind == "serve":
         def step(model, batch):
             return recsys.forward(model, _batch_on(batch, device))
@@ -89,8 +104,9 @@ def _build_lm(arch_id: str, shape: str, device: torch.device) -> Cell:
     kind = mod.step_kind(shape)
     if kind == "train":
         raise NotImplementedError(
-            f"{arch_id} {shape}: training is not ported yet (ROADMAP A11, "
-            "LM training)")
+            f"{arch_id} {shape}: LM training is not ported yet (ROADMAP "
+            "A11.3: the LM loss and an autograd wrapper of the attention "
+            "kernel)")
     cfg = mod.make_config()
     specs = mod.input_specs(shape)
     params = T.param_specs(cfg)

@@ -20,12 +20,22 @@ Cross network (DCN-v2, full-rank W), in parallel with the deep tower:
 and their concatenation feeds the logit. The cross, MLP and head
 products are plain ``torch.matmul``, as the reference leaves them to XLA.
 
+Training: the parameters require grad when the model is built with
+``requires_grad=True`` (serving builds them without). Both kernels then
+run under ``kernels.autograd``'s Functions: the gradient of a lookup to the
+table is the segment sum of its output-gradient rows by row id, on the
+segment-reduce kernel's sorted body; the gradient of a segment sum to
+its rows a gather, on the embedding-bag kernel.
+
 Rounding: every op rounds to the config dtype as the reference's ops
-do. One place differs in bfloat16: a multi-hot ``fused_lookup`` sums a
-bag in fp32 and rounds once (the kernel), where the reference's model
-rounds each of its H - 1 partial sums through a bfloat16
-``segment_sum``; the two differ by at most (H/2) bfloat16 ulps of the
-bag's magnitude sum|row|. In float32 they agree exactly.
+do. Two places differ in bfloat16, each by its sums' rounding: a
+multi-hot ``fused_lookup`` sums a bag in fp32 and rounds once (the
+kernel), where the reference's model rounds each of its H - 1 partial
+sums through a bfloat16 ``segment_sum``, so the two differ by at most
+(H/2) bfloat16 ulps of the bag's magnitude sum|row|; and the table's
+gradient sums the c lookups of a row in fp32 and rounds once, where the
+reference's scatter-add rounds each of its c - 1 adds, at most (c/2)
+ulps of sum|g| apart. In float32 the lookups agree exactly.
 """
 from __future__ import annotations
 
@@ -36,9 +46,8 @@ import torch
 from torch import nn
 
 from repro_torch.graphs.device import resolve_device
-from repro_torch.kernels.embedding_bag.ops import \
-    embedding_bag as embedding_bag_kernel
-from repro_torch.kernels.segment_reduce.ops import segment_reduce
+from repro_torch.kernels.autograd import \
+    embedding_bag as embedding_bag_kernel, segment_reduce
 from repro_torch.models import layers as L
 
 # Criteo-like per-feature table sizes (hashed); padded to multiples of
@@ -92,14 +101,14 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   bag_ids: torch.Tensor, num_bags: int,
                   combine: str = "sum", *,
                   indices_are_sorted: bool = False) -> torch.Tensor:
-    """General EmbeddingBag: rows = table[indices]; the rows of each
-    bag (int32 ``bag_ids``, in any order, as the reference's
-    ``segment_sum`` over them takes them) reduce through the
-    segment-reduce kernel. [nnz] -> [num_bags, dim]; an empty bag is 0.
-    ``indices_are_sorted`` promises ascending ``bag_ids`` and sends both
-    segment sums to the kernel's sorted body; the default takes its
-    atomic body."""
-    rows = table[indices.long()]
+    """General EmbeddingBag: rows = table[indices] (the embedding-bag
+    kernel, bags of 1); the rows of each bag (int32 ``bag_ids``, in any
+    order, as the reference's ``segment_sum`` over them takes them)
+    reduce through the segment-reduce kernel. [nnz] -> [num_bags, dim];
+    an empty bag is 0. ``indices_are_sorted`` promises ascending
+    ``bag_ids`` and sends both segment sums to the kernel's sorted body;
+    the default takes its atomic body."""
+    rows = embedding_bag_kernel(table, indices.to(torch.int32)[:, None])
     out = segment_reduce(rows, bag_ids, num_bags, op="sum",
                          indices_are_sorted=indices_are_sorted)
     if combine == "mean":
@@ -153,28 +162,30 @@ def param_count(cfg: RecsysConfig) -> int:
     return sum(int(np.prod(s)) for s in param_shapes(cfg).values())
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class DCNv2(nn.Module):
     """The model's parameters as a module; ``model(batch)`` is
     ``forward(model, batch)``. Built by ``init`` (random, from a
-    generator) or ``params_from_reference`` (carried values)."""
+    generator) or ``params_from_reference`` (carried values); the
+    parameters require grad iff ``requires_grad``."""
 
-    def __init__(self, cfg: RecsysConfig, params: dict):
+    def __init__(self, cfg: RecsysConfig, params: dict,
+                 requires_grad: bool = False):
         super().__init__()
+
+        def param(t):
+            return nn.Parameter(t, requires_grad=requires_grad)
+
         self.cfg = cfg
-        self.table = _frozen(params["table"])
+        self.table = param(params["table"])
         self.dense_norm = nn.ParameterDict(
-            {k: _frozen(v) for k, v in params["dense_norm"].items()})
+            {k: param(v) for k, v in params["dense_norm"].items()})
         self.cross = nn.ModuleList(
-            nn.ParameterDict({k: _frozen(v) for k, v in cl.items()})
+            nn.ParameterDict({k: param(v) for k, v in cl.items()})
             for cl in params["cross"])
         self.mlp = nn.ModuleDict(
-            {k: nn.ParameterList(_frozen(v) for v in params["mlp"][k])
+            {k: nn.ParameterList(param(v) for v in params["mlp"][k])
              for k in ("ws", "bs")})
-        self.head = _frozen(params["head"])
+        self.head = param(params["head"])
         self.register_buffer("row_offsets", torch.as_tensor(
             cfg.row_offsets, dtype=torch.int32, device=self.table.device))
 
@@ -183,10 +194,11 @@ class DCNv2(nn.Module):
 
 
 def init(cfg: RecsysConfig, *, generator: torch.Generator | None = None,
-         device=None) -> DCNv2:
+         device=None, requires_grad: bool = False) -> DCNv2:
     """Random DCN-v2 on ``device`` (CUDA unless given; raises without
     CUDA unless ``device="cpu"``), every draw from ``generator`` (a
-    generator of that device seeded 0 when None)."""
+    generator of that device seeded 0 when None); trainable iff
+    ``requires_grad``."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
@@ -204,15 +216,16 @@ def init(cfg: RecsysConfig, *, generator: torch.Generator | None = None,
         "mlp": L.mlp_params([d, *cfg.mlp], cfg.dtype, **g),
         "head": L.normal_init((d + cfg.mlp[-1], 1),
                               (d + cfg.mlp[-1]) ** -0.5, cfg.dtype, **g),
-    })
+    }, requires_grad)
 
 
 def params_from_reference(tree: dict, cfg: RecsysConfig, *,
-                          device) -> DCNv2:
+                          device, requires_grad: bool = False) -> DCNv2:
     """A ``DCNv2`` holding exactly the values of the reference's
     parameter tree (``table``, ``dense_norm{w,b}``, ``cross[{w,b}]``,
-    ``mlp{ws,bs}``, ``head``) given as host arrays. Raises if a shape
-    or dtype differs from ``cfg``'s."""
+    ``mlp{ws,bs}``, ``head``) given as host arrays; trainable iff
+    ``requires_grad``. Raises if a shape or dtype differs from
+    ``cfg``'s."""
     dev = resolve_device(device)
 
     def conv(a):
@@ -225,7 +238,7 @@ def params_from_reference(tree: dict, cfg: RecsysConfig, *,
                   for cl in tree["cross"]],
         "mlp": {k: [conv(v) for v in tree["mlp"][k]] for k in ("ws", "bs")},
         "head": conv(tree["head"]),
-    })
+    }, requires_grad)
     got = {n: tuple(p.shape) for n, p in model.named_parameters()}
     if got != param_shapes(cfg):
         raise ValueError(f"parameter shapes {got} do not match the config")
@@ -234,6 +247,26 @@ def params_from_reference(tree: dict, cfg: RecsysConfig, *,
             raise ValueError(f"{n} is {p.dtype}, the config says "
                              f"{cfg.dtype}")
     return model
+
+
+def state_from_reference(tree: dict, cfg: RecsysConfig, *,
+                         device) -> dict:
+    """A port TrainState (``train.train_state``) holding exactly the
+    values of a reference TrainState given as host arrays: ``params``
+    (a trainable ``DCNv2``), the optimizer's moment trees under ``opt``
+    (keyed by parameter name) and ``step`` (int32)."""
+    from repro_torch.train.optimizer import named
+
+    dev = resolve_device(device)
+    return {
+        "params": params_from_reference(tree["params"], cfg, device=dev,
+                                         requires_grad=True),
+        "opt": {k: {n: L.from_numpy(v).to(dev)
+                    for n, v in named(sub).items()}
+                for k, sub in tree["opt"].items()},
+        "step": torch.tensor(int(tree["step"]), dtype=torch.int32,
+                             device=dev),
+    }
 
 
 # ==========================================================================
@@ -269,12 +302,18 @@ def forward(model: DCNv2, batch: dict) -> torch.Tensor:
     return tower(model, interact(model, batch))
 
 
-def loss_fn(model: DCNv2, batch: dict) -> torch.Tensor:
-    """Binary cross-entropy on click labels (float32)."""
-    logits = forward(model, batch).float()
-    y = batch["label"].float()
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of logits on click labels, in float32
+    (the numerically stable form)."""
+    logits = logits.float()
+    y = labels.float()
     return torch.mean(torch.clamp(logits, min=0) - logits * y
                       + torch.log1p(torch.exp(-logits.abs())))
+
+
+def loss_fn(model: DCNv2, batch: dict) -> torch.Tensor:
+    """Binary cross-entropy on click labels (float32)."""
+    return bce_loss(forward(model, batch), batch["label"])
 
 
 def project_scores(model: DCNv2, q: torch.Tensor,

@@ -27,6 +27,7 @@ to the normwise ``ref.p_rounding_norm_bound``, which grows only as the
 rounding errors' root-mean-square does.
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
+import copy
 import dataclasses
 
 import numpy as np
@@ -34,6 +35,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import autograd as ag
 from repro_torch.core import cc, rounds
 from repro_torch.core.segmentation import plan_segmentation
 from repro_torch.core.unionfind import connected_components_scipy
@@ -1079,3 +1081,152 @@ def test_fleet_defaults_to_cuda_devices(dev):
     np.testing.assert_array_equal(done["t", "component_size"].result, [3, 1])
     np.testing.assert_array_equal(done["whale", "same_component"].result,
                                   [True, False])
+
+
+# ---------------------------------------------------------------------------
+# training: the two kernels' autograd Functions, the train step, restarts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("bag,combine", [(1, "sum"), (3, "sum"),
+                                         (4, "mean")])
+def test_embedding_bag_backward_matches_plain(dev, bag, combine, dtype):
+    """The lookup's table gradient on the card: K5 forward, then the
+    sorted route (stable sort, K5 gather, K4's sorted body) equal bit
+    for bit to the plain route on the CPU (fp32 sums of each row's terms
+    in their original order on both sides, one rounding), and K4's
+    atomic body on the same rows within the sum gates of the kernel
+    tests (fp32 order; one bf16 ulp). Half the lookups hit one row."""
+    vocab, b = 3000, 4096
+    table = _table(vocab, 16, dtype, 5, dev).requires_grad_(True)
+    idx = _edges(vocab, b * bag, seed=bag, dev=dev).view(-1)[
+        :b * bag].reshape(b, bag).contiguous()
+    idx[: b // 2, 0] = 7
+    cot = _table(b, 16, dtype, 6, dev)
+    eb_ops.KERNEL.launches = sr_ops.KERNEL.launches = 0
+    out = ag.embedding_bag(table, idx, combine=combine)
+    (got,) = torch.autograd.grad((out.float() * cot.float()).sum(), table)
+    again = ag.table_grad(cot, idx, vocab, combine)
+    torch.cuda.synchronize()
+    assert (eb_ops.KERNEL.launches, sr_ops.SORTED.launches,
+            sr_ops.ATOMIC.launches) == (3, 2, 0)
+    want = ag.table_grad(cot.cpu(), idx.cpu(), vocab, combine)
+    assert got.dtype == dtype
+    assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+    rows = (cot / bag if combine == "mean" else cot).repeat_interleave(
+        bag, 0)
+    atomic = sr_ops.segment_reduce(rows, idx.reshape(-1), vocab)
+    torch.cuda.synchronize()
+    err = (atomic.float() - got.float()).abs()
+    sum_abs = torch.zeros((vocab, 16), device=dev).index_add_(
+        0, idx.reshape(-1).long(), rows.float().abs())
+    tol = 2 * b * bag * 2.0 ** -24 * sum_abs
+    if dtype == torch.bfloat16:
+        tol = tol + fa_ref.ulp_bf16(got)
+    assert bool((err <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("sort", (True, False))
+def test_segment_sum_backward_matches_plain(dev, sort, dtype):
+    """The segment sum's gradient on the card (a K5 gather, 0 for a
+    dropped row) equals the plain gather bit for bit, on either K4 body
+    forward."""
+    n, segs = 5000, 700
+    data = _table(n, 16, dtype, 8, dev).requires_grad_(True)
+    ids = torch.randint(-2, segs + 2, (n,), device=dev,
+                        generator=torch.Generator(dev).manual_seed(8))
+    ids = (torch.sort(ids).values if sort else ids).to(torch.int32)
+    cot = _table(segs, 16, dtype, 9, dev)
+    before = (eb_ops.KERNEL.launches, sr_ops.SORTED.launches,
+              sr_ops.ATOMIC.launches)
+    out = ag.segment_reduce(data, ids, segs, indices_are_sorted=sort)
+    (got,) = torch.autograd.grad((out.float() * cot.float()).sum(), data)
+    torch.cuda.synchronize()
+    assert (eb_ops.KERNEL.launches, sr_ops.SORTED.launches,
+            sr_ops.ATOMIC.launches) == (before[0] + 1, before[1] + sort,
+                                        before[2] + (not sort))
+    want = ag.gather_rows(cot.cpu(), ids.cpu(), segs)
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+def _smoke_train(dtype, device, generator_seed=0):
+    cfg = dataclasses.replace(dcn_v2.make_smoke_config(), dtype=dtype)
+    model = recsys.init(cfg, generator=torch.Generator().manual_seed(
+        generator_seed), device="cpu", requires_grad=True)
+    return cfg, copy.deepcopy(model).to(device)
+
+
+def test_train_step_on_card_matches_the_cpu(dev):
+    """Three steps of the ``train_batch`` cell's step on the smoke config
+    (f32) from the same weights: the card's route (K5 forward, K4's
+    sorted body backward, torch ops elsewhere) against the CPU's plain
+    route, within 1e-5 (matmuls sum in other orders)."""
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.launch import steps
+    from repro_torch.train.optimizer import named
+    cfg, on_card = _smoke_train(torch.float32, dev)
+    _, on_cpu = _smoke_train(torch.float32, "cpu")
+    cells = {d: steps.build_cell("dcn-v2", "train_batch", device=d)
+             for d in (dev, "cpu")}
+    states = {d: cells[d].init_state(m)
+              for d, m in ((dev, on_card), ("cpu", on_cpu))}
+    eb_ops.KERNEL.launches = sr_ops.KERNEL.launches = 0
+    for i in range(3):
+        batch = recsys_batch(1, i, 64, cfg.n_dense, cfg.table_sizes)
+        metrics = {d: cells[d].step(states[d], batch)[1] for d in states}
+        for k in ("loss", "grad_norm"):
+            assert float(metrics[dev][k]) == pytest.approx(
+                float(metrics["cpu"][k]), rel=1e-5)
+    torch.cuda.synchronize()
+    assert (eb_ops.KERNEL.launches, sr_ops.SORTED.launches) == (6, 3)
+    got, want = named(states[dev]["params"]), named(states["cpu"]["params"])
+    for n in want:
+        torch.testing.assert_close(got[n].detach().cpu(), want[n].detach(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_restart_on_card_replays_bit_for_bit(dev, tmp_path):
+    """``run_with_restarts`` on the card (bf16 smoke config, a failure
+    at step 4, checkpoints every 3): params, m, v and step bit-equal to
+    the uninterrupted run. The route is deterministic: K4's sorted body
+    sums in order."""
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.launch import steps
+    from repro_torch.train.fault_tolerance import (SimulatedFailure,
+                                                   run_with_restarts)
+    from repro_torch.train.optimizer import named
+    cfg = dataclasses.replace(dcn_v2.make_smoke_config(),
+                              dtype=torch.bfloat16)
+    cell = steps.build_cell("dcn-v2", "train_batch", device=dev)
+    host = [recsys_batch(1, i, 256, cfg.n_dense, cfg.table_sizes)
+            for i in range(6)]
+
+    def fresh():
+        return cell.init_state(recsys.init(
+            cfg, generator=torch.Generator(dev).manual_seed(0), device=dev,
+            requires_grad=True))
+
+    def run(fail_at, d):
+        tripped = {"done": False}
+
+        def step_fn(s, batch):
+            if fail_at and int(s["step"]) == fail_at and not tripped["done"]:
+                tripped["done"] = True
+                raise SimulatedFailure("boom")
+            return cell.step(s, batch)
+        return run_with_restarts(init_state_fn=fresh, step_fn=step_fn,
+                                 stream_fn=lambda start: iter(host[start:]),
+                                 total_steps=6, ckpt_dir=str(d),
+                                 ckpt_every=3, keep=1)
+
+    clean, faulty = run(0, tmp_path / "a"), run(4, tmp_path / "b")
+    assert (clean.restarts, faulty.restarts) == (0, 1)
+    a, b = clean.final_state, faulty.final_state
+    for part in ("m", "v"):
+        for n, t in a["opt"][part].items():
+            assert torch.equal(t, b["opt"][part][n]), (part, n)
+    pb = named(b["params"])
+    for n, t in named(a["params"]).items():
+        assert torch.equal(t, pb[n]), n
+    assert int(a["step"]) == int(b["step"]) == 6

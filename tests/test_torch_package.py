@@ -23,8 +23,8 @@ from repro_torch.graphs import format as tfmt
 from repro_torch.graphs import generators as tgen
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|repro|ml_dtypes)\b(?!_torch)", re.MULTILINE)
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -38,6 +38,7 @@ def test_import_loads_no_jax_and_no_reference():
             "import repro_torch.launch.steps\n"
             "import repro_torch.kernels.embedding_bag.ops\n"
             "import repro_torch.kernels.segment_reduce.ops\n"
+            "import repro_torch.kernels.autograd\n"
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.models.transformer, repro_torch.serving.engine\n"
             "import repro_torch.configs.gemma2_2b, repro_torch.configs.qwen2_5_32b\n"
@@ -52,8 +53,15 @@ def test_import_loads_no_jax_and_no_reference():
             "import repro_torch.models.moe, repro_torch.configs.minicpm3_4b\n"
             "import repro_torch.configs.grok_1_314b\n"
             "import repro_torch.configs.phi3_5_moe\n"
+            "import repro_torch.train.optimizer, repro_torch.train.loop\n"
+            "import repro_torch.train.train_state\n"
+            "import repro_torch.train.checkpoint\n"
+            "import repro_torch.train.fault_tolerance\n"
+            "import repro_torch.train.compression\n"
+            "import repro_torch.launch.train\n"
             "bad = [m for m in sys.modules\n"
-            "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+            "                              'ml_dtypes')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
