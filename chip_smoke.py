@@ -41,7 +41,11 @@ then the recsys serving slice, DCN-v2 at full width (26 Criteo tables,
    path's shapes (serve_p99 13,312 bags of 1, serve_bulk 6,815,744,
    retrieval_cand 1,000,000, and a multi-hot B=512 x 26 x H=4, sum and
    mean): bags of 1 bit-equal, larger bags within one bfloat16 ulp;
-   timed beside ``F.embedding_bag``;
+   timed by CUDA events (the wrapper included) and by device time
+   (``torch.profiler``, 5 calls) beside its plain version and, at bags
+   of 1, ``F.embedding`` (an index_select: the same function, checked
+   bit-equal) and ``F.embedding_bag``, at larger bags
+   ``F.embedding_bag``;
 7. the ragged EmbeddingBag path (``recsys.embedding_bag``, bags of 1-8
    rows, ascending ids passed with ``indices_are_sorted=True``, launches
    counted, all on ``segment_reduce``'s sorted body; the same bags with
@@ -176,16 +180,22 @@ then the batched engine and the connectivity service:
     medium-16): labels equal scipy and the per-graph ``solve(method=
     "adaptive")``, per-graph WorkCounters equal ``BATCHED_PARITY``
     (computed with ``repro.api.Solver.solve_batch``), and the batched
-    scan (``cc_fused_scan_batched``) launches once per bucket scan plus
-    once per cleanup round, counts set to 0 just before. Then 2,048
-    graphs ``rmat(8 + i % 5, 8, seed=i)`` (256-4,096 vertices, 3.2M
-    vertices and 26M edges in all, five buckets): labels equal scipy on
-    every graph, launches counted the same way; the largest bucket's
-    scan bit-equal to ``ref_segment_scan_batched`` (pi and sweeps),
-    timed beside it against its byte bound; every batched launch of one
-    ``solve_batch`` by device time (``torch.profiler``) against its byte
-    bound (each true edge read once, pi read and written once per sweep
-    a hooked graph needed); ``solve_batch`` ms on the host fleet and on
+    scan launches once per bucket scan plus once per cleanup round, all
+    on the block body (``cc_fused_scan_batched_block``), counts set to 0
+    just before. Then 2,048 graphs ``rmat(8 + i % 5, 8, seed=i)``
+    (256-4,096 vertices, 3.2M vertices and 26M edges in all, five
+    buckets): labels equal scipy on every graph, launches counted the
+    same way, by body; the largest bucket's scan on both bodies (the
+    grid body forced) bit-equal to ``ref_segment_scan_batched`` (pi and
+    sweeps), timed beside it against its byte bound (each true edge read
+    once, each graph's pi read and written once); a synthetic bucket
+    above the block body's limit (V_pad 32,768) on the grid body,
+    bit-equal; every batched launch of one ``solve_batch`` by device
+    time (``torch.profiler``) against its byte bound, on the block body
+    and with the grid body forced, the old per-sweep byte count
+    (``sweep_bytes_ms``: pi read and written once per sweep a hooked
+    graph needed) beside it, and the device ops whose launches differ
+    between the two runs; ``solve_batch`` ms on the host fleet and on
     the same graphs as ``DeviceGraph``s (CUDA events, median of 3 after
     a warm-up), split into stacking, bucket solves and results; graphs/s;
     host syncs a call; ms per graph of a per-graph ``pallas_fused`` loop
@@ -287,8 +297,9 @@ seed 0, ``recsys_batch(1, i, ...)``):
     deterministic ``index_add_`` into fp32, then the cast): the loss and
     the tower's gradients equal, the table gradient on K4's sorted body
     bit-equal and equal call to call, K4's atomic body on the same rows
-    within one bf16 ulp; K5 and both K4 bodies timed at this shape
-    beside their plain versions and ``F.embedding_bag`` / ``index_add_``
+    within one bf16 ulp; K5 (the forward lookup, and the backward's
+    gather of the gradient rows with its own bound) timed as in phase 6,
+    both K4 bodies beside their plain versions and ``index_add_``
     (default and deterministic). Then six train steps, launch counts
     set to 0 just before and read just after (K5 twice a step, K4's
     sorted body once, its atomic body never), every loss and grad norm
@@ -302,8 +313,10 @@ seed 0, ``recsys_batch(1, i, ...)``):
     repro_torch.launch.train --arch dcn-v2 --steps 30 --fail-at 15``
     in-process on the card returns 0 after one restart.
 
-It prints informative lines, then one JSON line of per-kernel numbers,
-then, as its last line, ``{"ok": true, "device": {...}}``. Without a
+``--only GROUP[,GROUP...]`` runs some phase groups (``GROUPS``; the
+CC phases 2-5 come with the groups that reuse their graphs). It prints
+informative lines, then one JSON line of per-kernel numbers, then, as
+its last line, ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or away from the repository, it exits non-zero and prints
 no result.
 """
@@ -465,7 +478,42 @@ def kernel_share(per_kernel: dict, symbol: str) -> dict:
             "launches": sum(v["launches"] for v in hits)}
 
 
-def recsys_phases(torch, np, dev, rows: dict) -> dict:
+def device_ms(torch, fn, reps: int = 5):
+    """Device ms per call of ``fn``: its kernels and copies summed over
+    ``reps`` calls under ``torch.profiler``; None where the profile came
+    back without device time (the trace can lose its device events)."""
+    return device_kernels(torch, fn, reps)[1] or None
+
+
+def k5_times(torch, F, eb_ops, eb_ref, table, idx, combine: str) -> dict:
+    """K5 at one shape: CUDA-event ms a call (the wrapper included) and
+    device ms a call (``torch.profiler``) of the kernel, its plain
+    version and the library call. At bag 1 the library call is
+    ``F.embedding`` (an index_select: the same function bit for bit,
+    checked here), with ``F.embedding_bag`` beside it; at larger bags
+    ``F.embedding_bag``."""
+    calls = {"": lambda: eb_ops.embedding_bag(table, idx, combine=combine),
+             "plain_": lambda: eb_ref.ref_embedding_bag(table, idx,
+                                                        combine)}
+    idx64 = idx.long()
+    bag_call = lambda: F.embedding_bag(idx64, table, mode=combine)
+    if idx.shape[1] == 1:
+        flat = idx.view(-1)
+        calls["library_"] = lambda: F.embedding(flat, table)
+        calls["embedding_bag_"] = bag_call
+        check(torch.equal(calls["library_"](), calls[""]()),
+              "K5 at bag 1 differs from F.embedding")
+        out = {"library": "F.embedding"}
+    else:
+        calls["library_"] = bag_call
+        out = {"library": f"F.embedding_bag(mode={combine!r})"}
+    for k, fn in calls.items():
+        out[f"{k}ms"] = time_ms(torch, fn)
+        out[f"{k}device_ms"] = device_ms(torch, fn)
+    return out
+
+
+def recsys_phases(torch, np, dev, rows: dict, card: str) -> dict:
     """Phases 6-10: DCN-v2 at full width. Adds the ``embedding_bag`` and
     ``segment_reduce`` rows to ``rows``; returns the serving times."""
     import torch.nn.functional as F
@@ -533,24 +581,17 @@ def recsys_phases(torch, np, dev, rows: dict) -> dict:
         ulps = float(((got.float() - want.float()).abs()
                       / ulp_bf16(want)).max())
         check(ulps <= 1.0, f"embedding_bag {name}: {ulps} ulp from plain")
-        idx64 = idx.long()
         ms_bound, by = bound(b * bag * (4 + cfg.embed_dim * esize)
                              + b * cfg.embed_dim * esize,
                              b * bag * cfg.embed_dim)
         eb[name] = dict(
             shape=f"{name}: {b} bags x {bag}, table "
                   f"{table.shape[0]}x{table.shape[1]} {combine}",
-            equal=equal, max_abs_err=float_err(got, want),
-            max_ulp=ulps,
-            ms=time_ms(torch, lambda: eb_ops.embedding_bag(
-                table, idx, combine=combine)),
-            plain_ms=time_ms(torch, lambda: eb_ref.ref_embedding_bag(
-                table, idx, combine)),
-            library_ms=time_ms(torch, lambda: F.embedding_bag(
-                idx64, table, mode=combine)),
+            equal=equal, max_abs_err=float_err(got, want), max_ulp=ulps,
+            **k5_times(torch, F, eb_ops, eb_ref, table, idx, combine),
             bound_ms=ms_bound, bound_by=by)
-        print(f"embedding_bag {name}: {eb[name]}")
-        del got, want, idx64
+        print(f"embedding_bag {name} ({card}): {eb[name]}")
+        del got, want
 
     # -- 7. the ragged EmbeddingBag path and segment_reduce ----------------
     rng = np.random.default_rng(1)
@@ -1958,13 +1999,32 @@ def batched_launches(graphs, works) -> tuple[int, int]:
     return len(cleanup), sum(1 + r for r in cleanup.values())
 
 
-def scan_bytes(counts, sweeps, v_pad: int) -> int:
+def scan_bytes(counts, v_pad: int) -> int:
     """The least bytes of one batched scan launch: each true edge read
-    once (8 B), and for every (graph, segment) that hooks an edge, that
-    graph's pi read and written once per sweep it needed (8 B a vertex
-    a sweep)."""
+    once (8 B), each graph's pi read and written once (8 B a vertex)."""
+    return 8 * int(counts.sum()) + 8 * v_pad * counts.shape[0]
+
+
+def sweep_bytes(counts, sweeps, v_pad: int) -> int:
+    """The bytes of one batched scan launch that keeps pi in device
+    memory: each true edge read once, and for every (graph, segment)
+    that hooks an edge, that graph's pi read and written once per sweep
+    it needed (8 B a vertex a sweep)."""
     return 8 * int(counts.sum()) + 8 * v_pad * int(
         (sweeps * (counts > 0)).sum())
+
+
+@contextlib.contextmanager
+def forced_body(cc_ops, body: str):
+    """Every batched scan on ``body`` ("block" or "grid"), whatever its
+    shape, while the context is open: the within-call before / after of
+    the batched scan's two bodies."""
+    choose = cc_ops.batched_body
+    cc_ops.batched_body = lambda v_pad: body
+    try:
+        yield
+    finally:
+        cc_ops.batched_body = choose
 
 
 def batched_phases(torch, np, dev, rows: dict, card: str) -> dict:
@@ -1989,6 +2049,9 @@ def batched_phases(torch, np, dev, rows: dict, card: str) -> dict:
         buckets, want = batched_launches(graphs, consts)
         check(launches == want, f"batched {name}: {launches} launches, "
                                 f"{buckets} buckets need {want}")
+        check(cc_ops.BLOCK.launches == launches,
+              f"batched {name}: {cc_ops.GRID.launches} launches on the "
+              "grid body, the fleet's graphs fit the block body")
         for i, (g, r) in enumerate(zip(graphs, res)):
             oracle = connected_components_scipy(g.edges, g.num_nodes)
             check(np.array_equal(r.labels.numpy(), oracle),
@@ -2017,15 +2080,18 @@ def batched_phases(torch, np, dev, rows: dict, card: str) -> dict:
     res = Solver.solve_batch(fleet)
     torch.cuda.synchronize()
     launches = cc_ops.BATCHED.launches
+    by_body = {"block": cc_ops.BLOCK.launches, "grid": cc_ops.GRID.launches}
     works = [tuple(int(x) for x in r.work) for r in res]
     buckets, want = batched_launches(fleet, works)
     check(launches == want, f"batched fleet: {launches} launches, "
                             f"{buckets} buckets need {want}")
+    check(by_body["block"] == launches, f"batched fleet: launches by body "
+                                        f"{by_body}, all fit the block body")
     for i, (r, oracle) in enumerate(zip(res, oracles)):
         check(np.array_equal(r.labels.numpy(), oracle),
               f"batched fleet graph {i}: labels differ from scipy")
     print(f"batched fleet: labels == scipy on all {BATCH_FULL} graphs; "
-          f"{launches} launches for {buckets} buckets")
+          f"{launches} launches for {buckets} buckets, by body {by_body}")
 
     # the largest bucket's scan against the plain version, timed
     dfleet = [DeviceGraph.from_host(g, device=dev) for g in fleet]
@@ -2036,25 +2102,61 @@ def batched_phases(torch, np, dev, rows: dict, card: str) -> dict:
     b, v_pad = segs.shape[0], big.num_nodes
     pi0 = torch.arange(v_pad, dtype=torch.int32, device=dev) \
         .expand(b, v_pad).contiguous()
-    got = cc_ops.fused_segment_scan_batched(pi0, segs, counts)
     want_ = cc_ref.ref_segment_scan_batched(pi0, segs, counts)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(got[0], want_[0]), max_abs_err(got[1], want_[1]))
-    check(err == 0, "cc_fused_batched differs from its plain version on "
-                    "the largest bucket")
+    scan = {}
+    for body in ("block", "grid"):
+        with forced_body(cc_ops, body):
+            before = cc_ops.GRID.launches
+            got = cc_ops.fused_segment_scan_batched(pi0, segs, counts)
+            torch.cuda.synchronize()
+            check((cc_ops.GRID.launches - before == 1) == (body == "grid"),
+                  f"the largest bucket did not take the {body} body")
+            err = max(max_abs_err(got[0], want_[0]),
+                      max_abs_err(got[1], want_[1]))
+            check(err == 0, f"cc_fused_batched's {body} body differs from "
+                            "its plain version on the largest bucket")
+            # its device time is the fleet profile's launch of this bucket
+            scan[body] = time_ms(
+                torch, lambda: cc_ops.fused_segment_scan_batched(
+                    pi0, segs, counts))
     entry = dict(
         shape=f"largest bucket scan: B={b} x V_pad={v_pad}, "
               f"S={plan.num_segments}x{plan.segment_size}, "
               f"{int(counts.sum())} edges, {int(got[1].sum())} graph "
               "sweeps",
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: cc_ops.fused_segment_scan_batched(
-            pi0, segs, counts)),
+        max_abs_err=err, ms=scan["block"], grid_body_ms=scan["grid"],
         plain_ms=time_ms(torch, lambda: cc_ref.ref_segment_scan_batched(
             pi0, segs, counts), reps=1),
-        bound_ms=bound_ms(scan_bytes(counts, got[1], v_pad)))
-    print(f"cc_fused_batched ({card}): equal to plain; {entry}")
+        bound_ms=bound_ms(scan_bytes(counts, v_pad)),
+        sweep_bytes_ms=bound_ms(sweep_bytes(counts, got[1], v_pad)))
+    print(f"cc_fused_batched ({card}): both bodies equal to plain; {entry}")
     del got, want_, segs, counts, pi0, big
+
+    # a bucket above the block body's limit: the grid body, against plain
+    big_vp = 2 * cc_ops.BLOCK_MAX_V_PAD
+    rng = np.random.default_rng(18)
+    segs = torch.from_numpy(rng.integers(0, big_vp, (4, 3, 20000, 2))
+                            .astype(np.int32)).to(dev)
+    counts = torch.from_numpy(np.array([[20000, 7000, 0], [0, 0, 0],
+                                        [20000, 20000, 20000],
+                                        [1, 19999, 5]], np.int32)).to(dev)
+    pi0 = torch.arange(big_vp, dtype=torch.int32, device=dev) \
+        .expand(4, big_vp).contiguous()
+    check(cc_ops.batched_body(big_vp) == "grid", "V_pad 32,768 should take "
+                                                 "the grid body")
+    before = cc_ops.GRID.launches
+    got = cc_ops.fused_segment_scan_batched(pi0, segs, counts)
+    want_ = cc_ref.ref_segment_scan_batched(pi0, segs, counts)
+    torch.cuda.synchronize()
+    check(cc_ops.GRID.launches == before + 1, "the V_pad 32,768 bucket did "
+                                              "not take the grid body")
+    check(torch.equal(got[0], want_[0]) and torch.equal(got[1], want_[1]),
+          "cc_fused_batched's grid body differs from its plain version at "
+          "V_pad 32,768")
+    print(f"cc_fused_batched grid body ({card}): B=4 x V_pad={big_vp}, "
+          f"S=3x20000, sweeps {got[1].tolist()}: pi and sweeps equal to "
+          "plain")
+    del got, want_, segs, counts, pi0
 
     # every batched launch of one solve_batch: its device ms (profiler)
     # against its byte bound (recorded inputs and sweeps)
@@ -2066,23 +2168,46 @@ def batched_phases(torch, np, dev, rows: dict, card: str) -> dict:
         calls.append((true_counts, sw, pi.shape[1]))
         return p, sw
 
+    profile = {}
     cc_ops.fused_segment_scan_batched = recording
     try:
-        per_launch = launch_ms(torch, lambda: (
-            calls.clear(), Solver.solve_batch(dfleet)),
-            "cc_fused_batched_kernel")
+        for body in ("block", "grid"):
+            with forced_body(cc_ops, body):
+                per_launch = launch_ms(torch, lambda: (
+                    calls.clear(), Solver.solve_batch(dfleet)),
+                    "cc_fused_batched")
+                check(len(per_launch) == len(calls) == launches,
+                      f"profile holds {len(per_launch)} batched launches "
+                      f"({body} body), {len(calls)} calls, the main path "
+                      f"{launches}")
+                profile[body] = dict(
+                    per_launch_ms=per_launch, ms=sum(per_launch),
+                    bounds=[bound_ms(scan_bytes(c, v)) for c, _, v in calls],
+                    sweep_bytes_ms=sum(bound_ms(sweep_bytes(c, sw, v))
+                                       for c, sw, v in calls))
+                per_kernel, device_total = device_kernels(
+                    torch, lambda: Solver.solve_batch(dfleet))
+            profile[body].update(
+                device_ms=device_total,
+                ops={k: v["launches"] for k, v in per_kernel.items()})
+            print(f"profile batched fleet, {body} body ({card}): device "
+                  f"{device_total:.3f} ms; batched "
+                  f"launches ms {[round(t, 4) for t in per_launch]} "
+                  f"against bounds "
+                  f"{[round(t, 4) for t in profile[body]['bounds']]} "
+                  f"(sweep bytes {profile[body]['sweep_bytes_ms']:.4f}); "
+                  f"top {dict(list(per_kernel.items())[:6])}")
     finally:
         cc_ops.fused_segment_scan_batched = kernel_scan
-    check(len(per_launch) == len(calls) == launches,
-          f"profile holds {len(per_launch)} batched launches, "
-          f"{len(calls)} calls, the main path {launches}")
-    bounds = [bound_ms(scan_bytes(c, s, v)) for c, s, v in calls]
-    per_kernel, device_total = device_kernels(
-        torch, lambda: Solver.solve_batch(dfleet))
-    print(f"profile batched fleet ({card}): device {device_total:.3f} ms; "
-          f"batched launches ms {[round(t, 3) for t in per_launch]} "
-          f"against bounds {[round(t, 4) for t in bounds]}; top "
-          f"{dict(list(per_kernel.items())[:6])}")
+    # the grid body's wrapper fills flags and copies pi a launch; the block
+    # body's allocates no flags and reads pi in place
+    ops = {b: profile[b].pop("ops") for b in profile}
+    differ = {k: (ops["block"].get(k, 0), ops["grid"].get(k, 0))
+              for k in ops["block"].keys() | ops["grid"].keys()
+              if ops["block"].get(k, 0) != ops["grid"].get(k, 0)}
+    print(f"fleet device ops whose launches differ (block, grid): {differ}")
+    per_launch, bounds = profile["block"]["per_launch_ms"], \
+        profile["block"]["bounds"]
 
     # times: the host fleet end to end, the DeviceGraph fleet and its
     # split (stacking, the bucket solves, the rest: the per-graph
@@ -2118,20 +2243,27 @@ def batched_phases(torch, np, dev, rows: dict, card: str) -> dict:
            "syncs_host": syncs_host, "syncs_device_graphs": syncs_dev,
            "pergraph_pallas_fused_ms_per_graph": loop_ms / len(loop),
            "batched_ms_per_graph": dev_ms / BATCH_FULL,
-           "device_ms": device_total,
+           "device_ms": profile["block"]["device_ms"],
            "batched_kernel_ms": sum(per_launch),
-           "batched_kernel_bound_ms": sum(bounds)}
+           "batched_kernel_bound_ms": sum(bounds),
+           "batched_kernel_sweep_bytes_ms":
+               profile["block"]["sweep_bytes_ms"],
+           "launches_by_body": by_body,
+           "grid_body_forced": {k: profile["grid"][k] for k in (
+               "ms", "device_ms", "per_launch_ms")},
+           "device_ops_that_differ": differ}
     print(f"batched fleet ({card}): {json.dumps(res)}")
     out["batched"] = res
     rows["cc_fused_batched"] = dict(
         name="cc_fused_batched", route="cuda",
         source="src/repro_torch/kernels/csrc/cc_fused.cu",
         replaces="src/repro/kernels/cc_fused/cc_fused.py:122",
-        launches=launches, equal=True, **entry, bound_by="bytes",
-        library_ms=None,
+        launches=launches, launches_by_body=by_body, equal=True, **entry,
+        bound_by="bytes", library_ms=None,
         main_path_device_ms={"ms": sum(per_launch),
                              "launches": len(per_launch),
-                             "bound_ms": sum(bounds)},
+                             "bound_ms": sum(bounds),
+                             "grid_body_forced_ms": profile["grid"]["ms"]},
         per_launch_ms=per_launch)
     out["batched_s"] = time.perf_counter() - t_phase
     print(f"batched: {out['batched_s']:.1f} s")
@@ -3416,15 +3548,20 @@ def train_phases(torch, np, dev, rows: dict, card: str) -> dict:
                  f"into {v_rows} x {dim} {table.dtype}")
         k5 = dict(shape=shape + " forward", max_abs_err=float_err(
             fwd_got, fwd_want),
-            ms=time_ms(torch, lambda: eb_ops.embedding_bag(table, flat)),
-            plain_ms=time_ms(torch, lambda: eb_ref.ref_embedding_bag(
-                table, flat)),
-            library_ms=time_ms(torch, lambda: F.embedding_bag(
-                flat.long(), table, mode="sum")),
-            library="F.embedding_bag(mode='sum')",
-            bound_ms=k5_bound, bound_by=k5_by,
-            gather_ms=time_ms(torch, lambda: eb_ops.embedding_bag(g_emb,
-                                                                  src)))
+            **k5_times(torch, F, eb_ops, eb_ref, table, flat, "sum"),
+            bound_ms=k5_bound, bound_by=k5_by)
+        # the backward's gather: the lookup's gradient rows (a [n_look,
+        # dim] table read whole, once) in sorted-id order
+        gather_bound, _ = bound(n_look * (4 + dim * esize)
+                                + n_look * dim * esize, n_look * dim)
+        k5["gather"] = dict(
+            shape=f"train_batch backward gather: {n_look} gradient rows of "
+                  f"{dim} {g_emb.dtype} in sorted-id order",
+            max_abs_err=float_err(rows_sorted, g_emb[order]),
+            **k5_times(torch, F, eb_ops, eb_ref, g_emb, src, "sum"),
+            bound_ms=gather_bound, bound_by="bytes")
+        check(torch.equal(rows_sorted, g_emb[order]),
+              "K5's gather of the gradient rows differs from plain")
         k4_common = dict(
             plain_ms=time_ms(torch, lambda: sr_ref.ref_segment_reduce(
                 g_emb, ids, v_rows)),
@@ -3575,7 +3712,7 @@ def train_phases(torch, np, dev, rows: dict, card: str) -> dict:
         "segment_reduce_atomic": dict(k4_atomic, launches=launches[
             "atomic"], launches_per_step=0)}
     for name, entry in train_rows.items():
-        rows[name]["train"] = entry
+        rows.setdefault(name, {"name": name})["train"] = entry
     del clean, state, model, params, host
     gc.collect()
     torch.cuda.empty_cache()
@@ -3587,25 +3724,11 @@ def train_phases(torch, np, dev, rows: dict, card: str) -> dict:
     return {"dcn-v2 train_batch": times}
 
 
-def main() -> int:
-    # the one torch.compile (phase 11's flex_attention yardstick) keeps
-    # its caches in the checkout's build directory and compiles in-process
-    for var, val in (("TORCHINDUCTOR_CACHE_DIR", ROOT / "build" / "inductor"),
-                     ("TRITON_CACHE_DIR", ROOT / "build" / "triton"),
-                     ("TORCHINDUCTOR_COMPILE_THREADS", "1")):
-        os.environ.setdefault(var, str(val))
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from the "
-              "repository root", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(SRC))
-    import numpy as np
-
-    from repro_torch import kernels
+def cc_phases(torch, np, dev, rows: dict, card: str) -> tuple:
+    """Phases 2-5: the CC kernels against their plain versions, the main
+    path at full scale, the parity constants, the solve times. Adds the
+    K1-K3 rows to ``rows``; returns (the solve times, phase 3's graphs,
+    their oracle labels)."""
     from repro_torch.core import cc, rounds
     from repro_torch.core.unionfind import connected_components_scipy
     from repro_torch.graphs.device import DeviceGraph
@@ -3613,25 +3736,6 @@ def main() -> int:
     from repro_torch.kernels.cc_fused import ops as cc_ops, ref as cc_ref
     from repro_torch.kernels.hook import ops as hook_ops, ref as hook_ref
     from repro_torch.kernels.multi_jump import ops as mj_ops, ref as mj_ref
-
-    t_start = time.perf_counter()
-    dev = torch.device(DEVICE)
-    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda}")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(card)
-
-    # -- 1. build ----------------------------------------------------------
-    report = kernels.build()
-    print(f"build: {report['seconds']:.2f} s (nvcc, sm_90a, "
-          f"{len(report['ptxas'])} sources built in parallel)")
-    for name, text in report["ptxas"].items():
-        for line in text.splitlines():
-            if "registers" in line or "error" in line.lower():
-                print(f"  ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
     graphs = {name: DeviceGraph.from_host(
@@ -3643,7 +3747,6 @@ def main() -> int:
     print(f"generate: {time.perf_counter() - t0:.1f} s")
 
     # -- 2. kernels vs plain, at the path's shapes -------------------------
-    rows = {}
     scans = {}
     for name, g in graphs.items():
         segs = rounds.pad_and_segment(g.edges, g.plan)
@@ -3980,48 +4083,110 @@ def main() -> int:
         }
         print(f"e2e {name}: " + ", ".join(
             f"{k} {v:.3f}" for k, v in e2e[name].items()))
+    return e2e, graphs, oracles
 
-    # -- 6.-10. the recsys serving slice ------------------------------------
-    e2e.update(recsys_phases(torch, np, dev, rows))
 
-    # -- 11.-13. the LM serving slice -----------------------------------------
-    e2e.update(lm_phases(torch, np, dev, rows, card))
+# the kernels JSON line's rows, in order
+KERNEL_ROWS = ("cc_fused", "cc_fused_batched", "hook", "hook_snapshot",
+               "multi_jump", "multi_jump_sequential", "embedding_bag",
+               "segment_reduce", "segment_reduce_atomic", "flash_attention")
+# phase groups, in run order; ``--only`` runs some of them (the CC phases
+# 2-5 come along with any group that reuses their graphs)
+GROUPS = ("cc", "recsys", "lm", "front_door", "dynamic", "batched",
+          "service", "distributed", "fleet", "mla_moe", "train")
+NEEDS_CC = ("front_door", "dynamic", "distributed")
 
-    # -- 14.-15. the front door ----------------------------------------------
-    e2e.update(front_door_phases(torch, np, dev, rows, card, graphs,
-                                 oracles))
 
-    # -- 16.-17. the dynamic stream ------------------------------------------
-    e2e.update(dynamic_phases(torch, np, dev, rows, card, graphs))
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    only = set(GROUPS)
+    if args:
+        if len(args) != 2 or args[0] != "--only" \
+                or not set(args[1].split(",")) <= set(GROUPS):
+            print(f"usage: chip_smoke.py [--only GROUP[,GROUP...]], groups "
+                  f"{', '.join(GROUPS)}", file=sys.stderr)
+            return 2
+        only = set(args[1].split(","))
+        if only & set(NEEDS_CC):
+            only.add("cc")
+    # the one torch.compile (phase 11's flex_attention yardstick) keeps
+    # its caches in the checkout's build directory and compiles in-process
+    for var, val in (("TORCHINDUCTOR_CACHE_DIR", ROOT / "build" / "inductor"),
+                     ("TRITON_CACHE_DIR", ROOT / "build" / "triton"),
+                     ("TORCHINDUCTOR_COMPILE_THREADS", "1")):
+        os.environ.setdefault(var, str(val))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from the "
+              "repository root", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    import numpy as np
 
-    # -- 18. the batched engine ----------------------------------------------
-    e2e.update(batched_phases(torch, np, dev, rows, card))
+    from repro_torch import kernels
 
-    # -- 19. the connectivity service ----------------------------------------
-    e2e.update(service_phases(torch, np, dev, rows, card))
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE)
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
 
-    # -- 20. the multi-shard engine and the cc-adaptive cell ----------------
-    e2e.update(distributed_phases(torch, np, dev, rows, card, graphs,
-                                  oracles))
+    # -- 1. build ----------------------------------------------------------
+    report = kernels.build()
+    print(f"build: {report['seconds']:.2f} s (nvcc, sm_90a, "
+          f"{len(report['ptxas'])} sources built in parallel)")
+    for name, text in report["ptxas"].items():
+        for line in text.splitlines():
+            if "registers" in line or "error" in line.lower():
+                print(f"  ptxas {name}: {line.strip()}")
 
-    # -- 21. the fleet -------------------------------------------------------
-    e2e.update(fleet_phases(torch, np, dev, rows, card))
-
-    # -- 22.-23. the MLA and MoE LMs, one model on the card at a time --------
-    del graphs, oracles, scans, results, flat
-    e2e.update(mla_moe_phases(torch, np, dev, rows, card))
-
-    # -- 24. DCN-v2 training -------------------------------------------------
-    e2e.update(train_phases(torch, np, dev, rows, card))
+    # -- 2.-5. the CC kernels and the static main path ---------------------
+    rows, e2e = {}, {}
+    graphs = oracles = None
+    if "cc" in only:
+        cc_e2e, graphs, oracles = cc_phases(torch, np, dev, rows, card)
+        e2e.update(cc_e2e)
+    # 6.-10. the recsys serving slice; 11.-13. the LM serving slice
+    if "recsys" in only:
+        e2e.update(recsys_phases(torch, np, dev, rows, card))
+    if "lm" in only:
+        e2e.update(lm_phases(torch, np, dev, rows, card))
+    # 14.-15. the front door; 16.-17. the dynamic stream
+    if "front_door" in only:
+        e2e.update(front_door_phases(torch, np, dev, rows, card, graphs,
+                                     oracles))
+    if "dynamic" in only:
+        e2e.update(dynamic_phases(torch, np, dev, rows, card, graphs))
+    # 18. the batched engine; 19. the connectivity service
+    if "batched" in only:
+        e2e.update(batched_phases(torch, np, dev, rows, card))
+    if "service" in only:
+        e2e.update(service_phases(torch, np, dev, rows, card))
+    # 20. the multi-shard engine and the cc-adaptive cell; 21. the fleet
+    if "distributed" in only:
+        e2e.update(distributed_phases(torch, np, dev, rows, card, graphs,
+                                      oracles))
+    if "fleet" in only:
+        e2e.update(fleet_phases(torch, np, dev, rows, card))
+    # 22.-23. the MLA and MoE LMs, one model on the card at a time
+    graphs = oracles = None
+    if "mla_moe" in only:
+        e2e.update(mla_moe_phases(torch, np, dev, rows, card))
+    # 24. DCN-v2 training
+    if "train" in only:
+        e2e.update(train_phases(torch, np, dev, rows, card))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [rows[k] for k in (
-        "cc_fused", "cc_fused_batched", "hook", "hook_snapshot",
-        "multi_jump",
-        "multi_jump_sequential",
-        "embedding_bag", "segment_reduce", "segment_reduce_atomic",
-        "flash_attention")]}))
+    print(json.dumps({"kernels": [rows[k] for k in KERNEL_ROWS
+                                  if k in rows or only == set(GROUPS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

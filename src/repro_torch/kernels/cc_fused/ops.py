@@ -1,7 +1,10 @@
 """Wrappers of the fused segment-scan kernel (``csrc/cc_fused.cu``): one
 graph's scan (``fused_segment_scan``, launches counted on ``KERNEL``)
 and a shape bucket's scan over all its graphs at once
-(``fused_segment_scan_batched``, counted on ``BATCHED``)."""
+(``fused_segment_scan_batched``, counted on ``BATCHED``: the block body,
+one graph a block with pi in shared memory, on ``BLOCK``; the grid body
+for larger graphs on ``GRID``; ``batched_body`` names the one a bucket
+takes)."""
 from __future__ import annotations
 
 import ctypes
@@ -9,17 +12,30 @@ import ctypes
 import torch
 
 from repro_torch.core.rounds import compress_fuel
-from repro_torch.kernels import Kernel, check_int32, stream_of
+from repro_torch.kernels import Bodies, Kernel, check_int32, stream_of
 from repro_torch.kernels.cc_fused.ref import (ref_segment_scan,
                                               ref_segment_scan_batched)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = Kernel("cc_fused", "cc_fused_scan",
                 [_P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P])
-BATCHED = Kernel("cc_fused", "cc_fused_scan_batched",
-                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                  _P])
+BLOCK = Kernel("cc_fused", "cc_fused_scan_batched_block",
+               [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+GRID = Kernel("cc_fused", "cc_fused_scan_batched",
+              [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+BATCHED = Bodies(BLOCK, GRID)
+# the block body keeps a graph's two pi buffers, 8 B a vertex, in one
+# block's shared memory: 128 KB at 16,384 of the 227 KB a block can have
+BLOCK_MAX_V_PAD = 16384
 _INT32_LIMIT = 2**31
+
+
+def batched_body(v_pad: int) -> str:
+    """The body a CUDA bucket of graphs of ``v_pad`` vertices takes:
+    ``"block"`` (one graph a block, pi in shared memory) up to
+    ``BLOCK_MAX_V_PAD``, ``"grid"`` (the whole bucket stepping together,
+    pi in device memory) above it."""
+    return "block" if v_pad <= BLOCK_MAX_V_PAD else "grid"
 
 
 def fused_segment_scan(pi: torch.Tensor, segments: torch.Tensor,
@@ -101,8 +117,9 @@ def fused_segment_scan_batched(pi: torch.Tensor, segments: torch.Tensor,
     Returns:
       (pi' [B, V_pad], sweeps int32 [B, S]): each graph's pi and sweeps
       equal ``fused_segment_scan`` on that graph alone. A CPU ``pi`` runs
-      the plain version; a CUDA one the kernel. B * V_pad and B * seg
-      must stay below 2^31 (``ValueError`` otherwise).
+      the plain version; a CUDA one the kernel, on the body that
+      ``batched_body(V_pad)`` names. B * V_pad and B * seg must stay
+      below 2^31 (``ValueError`` otherwise).
     """
     if pi.dim() != 2 or segments.dim() != 4 or true_counts.dim() != 2:
         raise ValueError(f"pi {tuple(pi.shape)}, segments "
@@ -128,20 +145,33 @@ def fused_segment_scan_batched(pi: torch.Tensor, segments: torch.Tensor,
     check_int32("true_counts", true_counts, 2)
     if not (segments.device == pi.device == true_counts.device):
         raise ValueError("pi, segments and true_counts must share a device")
-    out = pi.clone()
-    sweeps = torch.zeros((batch, num_segments), dtype=torch.int32,
-                         device=pi.device)
     if batch == 0 or num_segments == 0 or seg == 0:
+        return pi.clone(), torch.zeros((batch, num_segments),
+                                       dtype=torch.int32, device=pi.device)
+    log2_vp = v_pad.bit_length() - 1
+    if batched_body(v_pad) == "block":
+        # the kernel reads pi and writes every entry of out and sweeps
+        out = torch.empty_like(pi)
+        sweeps = torch.empty((batch, num_segments), dtype=torch.int32,
+                             device=pi.device)
+        with torch.cuda.device(pi.device):
+            BLOCK.launch(segments.data_ptr(), true_counts.data_ptr(),
+                         pi.data_ptr(), out.data_ptr(), sweeps.data_ptr(),
+                         batch, log2_vp, num_segments, seg, lift_steps, fuel,
+                         stream_of(pi))
         return out, sweeps
+    out = pi.clone()
+    sweeps = torch.empty((batch, num_segments), dtype=torch.int32,
+                         device=pi.device)
     scratch = torch.empty_like(pi)
     hilo = torch.empty((batch * seg, 2), dtype=torch.int32, device=pi.device)
     flags = torch.zeros(num_segments * fuel * (batch + 1), dtype=torch.int32,
                         device=pi.device)
     any_flags = flags[num_segments * fuel * batch:]
     with torch.cuda.device(pi.device):
-        BATCHED.launch(segments.data_ptr(), true_counts.data_ptr(),
-                       out.data_ptr(), scratch.data_ptr(), hilo.data_ptr(),
-                       flags.data_ptr(), any_flags.data_ptr(),
-                       sweeps.data_ptr(), batch, v_pad.bit_length() - 1,
-                       num_segments, seg, lift_steps, fuel, stream_of(pi))
+        GRID.launch(segments.data_ptr(), true_counts.data_ptr(),
+                    out.data_ptr(), scratch.data_ptr(), hilo.data_ptr(),
+                    flags.data_ptr(), any_flags.data_ptr(),
+                    sweeps.data_ptr(), batch, log2_vp, num_segments, seg,
+                    lift_steps, fuel, stream_of(pi))
     return out, sweeps

@@ -1,14 +1,20 @@
 // Fused Fig. 4 segment scan: every hook round and every compress sweep
-// of one segment scan in ONE persistent cooperative launch.
+// of one segment scan in ONE launch.
 //
 // Replaces: src/repro/kernels/cc_fused/cc_fused.py, _cc_fused_kernel /
 // cc_fused_pallas (entries ops.fused_segment_scan and, with a batch
 // axis, ops.fused_segment_scan_batched: the batched engine's scan of one
 // shape bucket, which the reference runs as its jnp rounds under vmap).
-// On the TPU the grid
-// runs in order over segments and pi stays resident in VMEM; here the
-// blocks of one co-resident grid walk the segments together and meet at
-// grid-wide barriers, with pi in device memory.
+// On the TPU the grid runs in order over segments and pi stays resident
+// in VMEM. Three bodies here:
+//   * cc_fused_kernel (one graph): the blocks of one co-resident
+//     cooperative grid walk the segments together and meet at grid-wide
+//     barriers, with pi in device memory;
+//   * cc_fused_batched_block_kernel (a bucket of graphs whose two pi
+//     buffers fit one block's shared memory, V_pad <= 16,384): one block
+//     a graph, pi in shared memory, block barriers only;
+//   * cc_fused_batched_kernel (larger buckets): the one-graph body with
+//     a batch axis, the whole bucket stepping together.
 //
 // For each segment i, in order:
 //   1. every edge slot j < seg: mask slots >= counts[i] to (0, 0), gather
@@ -36,7 +42,8 @@
 // Design against that bound, simple first: grid-stride loops keep every
 // SM busy and the sweep's pi reads and writes coalesced; the grid
 // barriers replace the host round trip and kernel launch of every step;
-// the random gathers are left as they are.
+// the random gathers are left as they are. The block body's bound and
+// design are given above it.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -112,7 +119,8 @@ cc_fused_kernel(const int* __restrict__ segs, const int* __restrict__ counts,
 
 
 // The batch axis (repro.core.batch runs one bucket of B same-shape graphs
-// as one vmapped program): B graphs of V_pad = 2^log2_vp vertices each,
+// as one vmapped program), for the buckets whose pi does not fit one
+// block (V_pad > 16,384): B graphs of V_pad = 2^log2_vp vertices each,
 // pi [B * V_pad] with graph g at offset g * V_pad holding LOCAL ids,
 // segments [B, S, seg, 2] in local ids, counts [B, S]. Each step above
 // runs over all B graphs at once: the hooks over B * seg slots, the
@@ -222,6 +230,114 @@ cc_fused_batched_kernel(const int* __restrict__ segs,
   }
 }
 
+
+// One graph a block, pi in shared memory (the bucket's graphs need no
+// barrier across blocks: each owns its pi, its segments and its sweeps).
+// Bound on this card, per launch: each true edge read once (8 B) and
+// each graph's pi read and written once (8 B a vertex); the sweeps and
+// the hooks' gathers and atomics stay in shared memory. Block b loads
+// graph b's pi into buffer ``cur``; then for each segment i:
+//   1. hook: copy cur to nxt; every slot j < counts[b, i] gathers pi[u],
+//      pi[v] and their lift_steps ancestors from cur (the snapshot) and
+//      takes atomicMin(nxt[hi], lo), skipped where lo is not below the
+//      live nxt[hi]; the masked slots are all the edge (0, 0), so one
+//      thread hooks it once for all of them; barrier; nxt is pi now;
+//   2. Jacobi sweeps while n < fuel: nxt[v] = cur[cur[v]] (the roles
+//      swapped after each), the change flag from __syncthreads_or; the
+//      block stops when its own graph stops changing;
+//   3. sweeps[b, i] = n, the last sweep (the one that changed nothing)
+//      counted, as the plain version counts it.
+// pi is written back once. The snapshot and the live buffer are apart,
+// so the hook is the reference's; a sweep reads one buffer and writes
+// the other, the reference's Jacobi step; and a graph stops when it
+// alone has stopped, as the reference's vmapped while_loop bills it: pi
+// and sweeps are bit-equal to the plain version. Edges are read with
+// four slots a thread in flight before their gathers. A block has
+// V_pad / 8 threads, at least a warp and at most 1,024.
+__global__ void __launch_bounds__(1024)
+cc_fused_batched_block_kernel(const int* __restrict__ segs,
+                              const int* __restrict__ counts,
+                              const int* __restrict__ pi_in,
+                              int* __restrict__ pi_out,
+                              int* __restrict__ sweeps, int log2_vp,
+                              int num_segments, int seg, int lift_steps,
+                              int fuel) {
+  extern __shared__ int smem[];
+  const int vp = 1 << log2_vp;
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const long long base = (long long)blockIdx.x << log2_vp;
+  int* cur = smem;
+  int* nxt = smem + vp;
+  // each thread copies, sweeps and writes back the same vertices, so no
+  // barrier is needed before the first copy
+  for (int v = t; v < vp; v += nt) cur[v] = __ldg(pi_in + base + v);
+  for (int i = 0; i < num_segments; ++i) {
+    const long long row = (long long)blockIdx.x * num_segments + i;
+    const int cnt = min(max(__ldg(counts + row), 0), seg);
+    const int* sp = segs + 2 * row * seg;
+    // 1. hook from the snapshot cur into nxt
+    for (int v = t; v < vp; v += nt) nxt[v] = cur[v];
+    __syncthreads();
+    if (cnt < seg && t == 0) {
+      int p = cur[0];
+      for (int s = 0; s < lift_steps; ++s) p = cur[p];
+      atomicMin(nxt + p, p);
+    }
+    for (int j0 = t; j0 < cnt; j0 += 4 * nt) {
+      int eu[4], ev[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = j0 + k * nt;
+        eu[k] = ev[k] = 0;
+        if (j < cnt) {
+          eu[k] = __ldg(sp + 2 * j);
+          ev[k] = __ldg(sp + 2 * j + 1);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (j0 + k * nt >= cnt) break;
+        int pu = cur[eu[k]];
+        int pv = cur[ev[k]];
+        for (int s = 0; s < lift_steps; ++s) {
+          pu = cur[pu];
+          pv = cur[pv];
+        }
+        const int hi = max(pu, pv), lo = min(pu, pv);
+        if (lo < nxt[hi]) atomicMin(nxt + hi, lo);
+      }
+    }
+    __syncthreads();
+    int* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+    // 2. Jacobi sweeps to this graph's fixpoint under fuel
+    int n = 0;
+    while (n < fuel) {
+      int changed = 0;
+      for (int v = t; v < vp; v += nt) {
+        const int a = cur[v];
+        const int b = cur[a];
+        nxt[v] = b;
+        changed |= b != a;
+      }
+      ++n;
+      const int any = __syncthreads_or(changed);
+      tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+      if (!any) break;  // both buffers hold pi
+    }
+    // 3. bill the segment
+    if (t == 0) sweeps[row] = n;
+  }
+  // the last hook or sweep ended in a barrier
+  for (int v = t; v < vp; v += nt) pi_out[base + v] = cur[v];
+}
+
+constexpr int kBlockMaxLog2Vp = 14;  // 2 x 4 B x 16,384 = 128 KB
+
 }  // namespace
 
 extern "C" {
@@ -273,10 +389,39 @@ int cc_fused_scan(const void* segs, const void* counts, void* pi_a,
   return cudaGetLastError();
 }
 
-// The batched entry: pi_a [B * 2^log2_vp] holds the bucket's pi (local
-// ids) on entry and the result on exit; pi_b is scratch of the same
-// size, hilo [B * seg] int2 scratch, flags [S * fuel * B] and any_flags
-// [S * fuel] zeroed ints, sweeps [B, S] output. Same launch rules as
+// The batched entry of the block body (log2_vp <= 14): pi_in [B *
+// 2^log2_vp] the bucket's pi (local ids, not modified), pi_out the
+// result, segs [B, S, seg, 2], counts [B, S], sweeps [B, S] output (every
+// entry written). One block a graph; launches on ``stream`` and returns
+// the CUDA error code.
+int cc_fused_scan_batched_block(const void* segs, const void* counts,
+                                const void* pi_in, void* pi_out,
+                                void* sweeps, int batch, int log2_vp,
+                                int num_segments, int seg, int lift_steps,
+                                int fuel, void* stream) {
+  if (log2_vp < 0 || log2_vp > kBlockMaxLog2Vp) return cudaErrorInvalidValue;
+  const int vp = 1 << log2_vp;
+  const int threads = vp / 8 < 32 ? 32 : vp / 8 > 1024 ? 1024 : vp / 8;
+  const size_t smem = 2 * sizeof(int) * (size_t)vp;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        cc_fused_batched_block_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  cc_fused_batched_block_kernel<<<batch, threads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(segs), static_cast<const int*>(counts),
+      static_cast<const int*>(pi_in), static_cast<int*>(pi_out),
+      static_cast<int*>(sweeps), log2_vp, num_segments, seg, lift_steps,
+      fuel);
+  return cudaGetLastError();
+}
+
+// The batched entry of the grid body: pi_a [B * 2^log2_vp] holds the
+// bucket's pi (local ids) on entry and the result on exit; pi_b is
+// scratch of the same size, hilo [B * seg] int2 scratch, flags [S * fuel
+// * B] and any_flags [S * fuel] zeroed ints, sweeps [B, S] output. Same launch rules as
 // cc_fused_scan, the grid sized from max(B * seg, B * V_pad).
 int cc_fused_scan_batched(const void* segs, const void* counts, void* pi_a,
                           void* pi_b, void* hilo, void* flags,

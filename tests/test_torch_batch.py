@@ -176,6 +176,63 @@ def test_ref_segment_scan_batched_is_per_graph(batch, v_pad, seg, segments,
         assert torch.equal(got_sw[b], want_sw)
 
 
+@pytest.mark.parametrize("log2_vp", range(3, 21))
+def test_batched_body_by_shape(log2_vp):
+    """A CUDA bucket takes the block body (one graph a block, its two pi
+    buffers in shared memory) up to V_pad 16,384, the grid body above."""
+    v_pad = 2 ** log2_vp
+    assert cc_ops.BLOCK_MAX_V_PAD == 16384
+    assert cc_ops.batched_body(v_pad) == ("block" if v_pad <= 16384
+                                          else "grid")
+
+
+def _sweep_bucket(v_pad: int, e_pad: int, seed: int):
+    """One bucket's inputs (int32 edges [4, e_pad, 2], true edge and node
+    counts): a path in random edge order (many sweeps and cleanup
+    rounds), a star (few), random edges, and a graph with no true edge
+    (a count of 0 in every segment, as an inactive graph has in a
+    cleanup round)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(v_pad)
+    path = np.stack([perm[:e_pad], perm[1:e_pad + 1]], 1)[
+        rng.permutation(e_pad)]
+    star = np.stack([np.full(e_pad, perm[0]), perm[1:e_pad + 1]], 1)
+    rand = rng.integers(0, v_pad, (e_pad // 2, 2))
+    parts = [path, star, rand, np.zeros((0, 2), np.int64)]
+    edges = np.zeros((4, e_pad, 2), np.int32)
+    for b, p in enumerate(parts):
+        edges[b, :len(p)] = p
+    true_edges = np.array([len(p) for p in parts], np.int32)
+    true_nodes = np.array([v_pad, v_pad - 5, v_pad // 2 + 1, v_pad],
+                          np.int32)
+    return edges, true_edges, true_nodes
+
+
+@pytest.mark.parametrize("v_pad", [cc_ops.BLOCK_MAX_V_PAD,
+                                   2 * cc_ops.BLOCK_MAX_V_PAD])
+def test_solve_bucket_matches_reference_either_side_of_the_block_limit(
+        v_pad):
+    """``solve_bucket`` equals the reference's bucket program (labels and
+    all five counters per graph) at the V_pad of each batched body, on
+    graphs that converge after different sweep counts, with cleanup
+    rounds in which the converged graphs scan with a count of 0."""
+    import jax.numpy as jnp
+    from repro.core import batch as jbatch
+    edges, true_edges, true_nodes = _sweep_bucket(v_pad, 2048, v_pad)
+    labels, work = tbatch.solve_bucket(
+        torch.from_numpy(edges), torch.from_numpy(true_edges),
+        torch.from_numpy(true_nodes), v_pad, num_segments=4)
+    want = jbatch._cc_batched_jit(
+        jnp.asarray(edges), jnp.asarray(true_edges), jnp.asarray(true_nodes),
+        num_nodes=v_pad, num_segments=4, lift_steps=2)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(want.labels))
+    for got_c, want_c in zip(work, want.work):
+        np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    hook_rounds, sweeps = work[3].tolist(), work[2].tolist()
+    assert max(hook_rounds) > 4 and min(hook_rounds) == 4
+    assert len(set(sweeps)) >= 3
+
+
 def test_int32_guard_raises():
     """B * V_pad and B * seg must stay below 2^31: the wrapper refuses a
     bucket past it (shape-only views, nothing allocated), as does the

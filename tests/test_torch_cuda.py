@@ -133,50 +133,67 @@ def _bucket(batch: int, v_pad: int, segments: int, seg: int, seed: int,
                  for a in (pi, segs, counts))
 
 
+def _body_kernel(v_pad: int):
+    """The launch count of the batched body a bucket of V_pad takes."""
+    return cc_ops.BLOCK if cc_ops.batched_body(v_pad) == "block" \
+        else cc_ops.GRID
+
+
 @pytest.mark.parametrize("v_pad,batch,segments,seg", [
     (8, 300, 3, 8), (64, 100, 4, 50), (256, 40, 2, 300),
-    (4096, 10, 5, 2000)])
+    (4096, 10, 5, 2000), (16, 400, 4, 24), (32, 320, 3, 96),
+    (64, 300, 2, 128), (16384, 3, 2, 20000), (32768, 3, 2, 20000)])
 @pytest.mark.parametrize("lift", (0, 2))
 def test_cc_fused_batched_kernel_matches_plain(dev, v_pad, batch, segments,
                                                seg, lift):
     """The batched entry equals ``ref_segment_scan_batched`` (pi and the
-    per-graph sweeps) where a block spans many graphs (V_pad 8, 64) and
-    where a graph spans many blocks (4096), from identity and from random
-    forests; one launch per call."""
+    per-graph sweeps) on molecule-sized buckets (V_pad 8-64, B 100-400),
+    medium ones, at the block body's limit (V_pad 16,384) and at twice
+    it (the grid body), from identity and from random forests; one
+    launch per call, on the body ``batched_body`` names."""
     pi, segs, counts = _bucket(batch, v_pad, segments, seg, v_pad + lift,
                                dev)
+    body = _body_kernel(v_pad)
+    assert (body is cc_ops.BLOCK) == (v_pad <= 16384)
     for pi0 in (torch.arange(v_pad, dtype=torch.int32, device=dev)
                 .expand(batch, v_pad).contiguous(), pi):
-        before = cc_ops.BATCHED.launches
+        before = (cc_ops.BATCHED.launches, body.launches)
         got = cc_ops.fused_segment_scan_batched(pi0, segs, counts,
                                                 lift_steps=lift)
         want = cc_ref.ref_segment_scan_batched(pi0, segs, counts,
                                                lift_steps=lift)
         torch.cuda.synchronize()
-        assert cc_ops.BATCHED.launches == before + 1
+        assert (cc_ops.BATCHED.launches, body.launches) == \
+            (before[0] + 1, before[1] + 1)
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[1], want[1])
 
 
 def test_cc_fused_batched_kernel_exhausted_fuel_matches_plain(dev):
     """Chains that need more sweeps than the fuel gives, beside graphs
-    that converge at once: the per-graph sweep counts stop at the fuel."""
-    v_pad, batch = 1024, 6
-    idx = np.arange(v_pad - 1)
-    chain = np.stack([idx + 1, idx], 1)
-    segs = np.zeros((batch, 1, v_pad - 1, 2), np.int64)
-    segs[::2, 0] = chain
-    segs = torch.from_numpy(segs.astype(np.int32)).to(dev)
-    counts = torch.full((batch, 1), v_pad - 1, dtype=torch.int32, device=dev)
-    pi0 = torch.arange(v_pad, dtype=torch.int32, device=dev) \
-        .expand(batch, v_pad).contiguous()
-    for fuel in (1, 2, 3, 20):
-        got = cc_ops.fused_segment_scan_batched(pi0, segs, counts,
-                                                lift_steps=0, fuel=fuel)
-        want = cc_ref.ref_segment_scan_batched(pi0, segs, counts,
-                                               lift_steps=0, fuel=fuel)
-        assert torch.equal(got[0], want[0])
-        assert torch.equal(got[1], want[1])
+    that converge at once: the per-graph sweep counts stop at the fuel,
+    on the block body (V_pad 1024) and on the grid body (32,768)."""
+    for v_pad in (1024, 32768):
+        batch = 6
+        idx = np.arange(v_pad - 1)
+        chain = np.stack([idx + 1, idx], 1)
+        segs = np.zeros((batch, 1, v_pad - 1, 2), np.int64)
+        segs[::2, 0] = chain
+        segs = torch.from_numpy(segs.astype(np.int32)).to(dev)
+        counts = torch.full((batch, 1), v_pad - 1, dtype=torch.int32,
+                            device=dev)
+        pi0 = torch.arange(v_pad, dtype=torch.int32, device=dev) \
+            .expand(batch, v_pad).contiguous()
+        body = _body_kernel(v_pad)
+        for fuel in (1, 2, 3, 20):
+            before = body.launches
+            got = cc_ops.fused_segment_scan_batched(pi0, segs, counts,
+                                                    lift_steps=0, fuel=fuel)
+            want = cc_ref.ref_segment_scan_batched(pi0, segs, counts,
+                                                   lift_steps=0, fuel=fuel)
+            assert body.launches == before + 1
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
 
 
 def test_solve_batch_on_the_card_matches_the_cpu(dev):
@@ -532,9 +549,13 @@ def _table(rows: int, dim: int, dtype, seed: int, dev) -> torch.Tensor:
 
 # (vocab, dim, bags, bag): 16-byte vector rows (dim 16, 8), rows that
 # take the scalar path (dim 5, 12 in bf16 / dim 6 in f32), the feature
-# count as a bag, and a bag count that fills no whole block
+# count as a bag, and a bag count that fills no whole block; bags of 1
+# whose count is no multiple of a block's rows (128 at dim 16 in bf16),
+# one row alone, and 3M rows (a grid of 23,438 blocks)
 EB_CASES = [(1000, 16, 4096, 1), (1000, 16, 777, 4), (300, 8, 256, 26),
-            (500, 5, 300, 3), (200, 12, 1000, 1), (64, 6, 129, 8)]
+            (500, 5, 300, 3), (200, 12, 1000, 1), (64, 6, 129, 8),
+            (1000, 16, 4099, 1), (1000, 16, 1, 1), (5000, 16, 3000017, 1),
+            (300, 5, 1001, 1)]
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
@@ -575,6 +596,47 @@ def test_embedding_bag_kernel_unaligned_table(dev):
     want = eb_ref.ref_embedding_bag(table, idx, "sum")
     torch.cuda.synchronize()
     assert torch.allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("dim", (4, 16))
+def test_embedding_bag_kernel_unaligned_table_bag_1(dev, dim, dtype):
+    """Bags of 1 on a table view that starts one element into its
+    storage (no 16-byte vectors: one element a thread) equal the
+    gather."""
+    base = _table(301, dim, dtype, dim, dev)
+    table = base.view(-1)[1:1 + 300 * dim].view(300, dim)
+    idx = _edges(300, 2001, 5, dev).view(-1)[:2001].reshape(2001, 1) \
+        .contiguous()
+    for combine in ("sum", "mean"):
+        got = eb_ops.embedding_bag(table, idx, combine=combine)
+        torch.cuda.synchronize()
+        assert torch.equal(got, eb_ref.ref_embedding_bag(table, idx,
+                                                         combine))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("bag", (2, 4, 9, 26))
+def test_embedding_bag_kernel_sums_rows_in_index_order(dev, bag, dtype):
+    """Bags of more than one row are the fp32 sum of the rows in index
+    order, rounded once (mean: that sum over ``bag``, rounded again), bit
+    for bit."""
+    table = _table(5000, 16, dtype, bag, dev)
+    idx = _edges(5000, 3000 * bag, bag, dev).view(-1)[:3000 * bag] \
+        .reshape(3000, bag).contiguous()
+    acc = torch.zeros((3000, 16), dtype=torch.float32, device=dev)
+    for j in range(bag):
+        acc = acc + table[idx[:, j].long()].float()
+    want = acc.to(dtype)
+    got = eb_ops.embedding_bag(table, idx, combine="sum")
+    mean = eb_ops.embedding_bag(table, idx, combine="mean")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # a tensor divisor: torch divides by a Python scalar through its
+    # reciprocal, which is not the kernel's (or the reference's) division
+    want32 = want.float()
+    assert torch.equal(mean, (want32 / torch.full_like(want32, bag))
+                       .to(dtype))
 
 
 def test_embedding_bag_wrapper_rejects_bad_tensors(dev):
