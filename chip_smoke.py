@@ -311,7 +311,39 @@ seed 0, ``recsys_batch(1, i, ...)``):
     host batch in) with samples/s, its device ms by op and idle share
     (``torch.profiler``) and peak memory; last, ``python -m
     repro_torch.launch.train --arch dcn-v2 --steps 30 --fail-at 15``
-    in-process on the card returns 0 after one restart.
+    in-process on the card returns 0 after one restart;
+
+then gemma2-2b training at full width and depth (the ``train_4k``
+cell: 2,614,341,888 bf16 parameters, bf16 moments, AdamW lr 3e-4, 4
+microbatches, remat on; ``transformer.init`` seed 0, ``lm_batch(0, i,
+8, 4096, ...)``: the global batch cut from 256 sequences to 8):
+
+25. the flash kernel's autograd wrapper on the first two layers' q, k,
+    v of a microbatch (local, window 4096, and global; softcap 50): one
+    Hopper-body launch, the forward within the p-rounding gates of the
+    plain version, dq, dk, dv bit-equal to ``torch.autograd.grad`` of
+    ``attention_blocked``; forward and forward + backward timed beside
+    the plain version, the all-plain blocked pair and compiled
+    ``flex_attention`` (forward, and forward + backward). Then one
+    microbatch's loss, grad norm, whole gradient and worst leaf through
+    the kernel route against the all-plain route (every attention
+    ``attention_blocked``), within ``LM_TRAIN_GATE_FACTOR`` times what
+    three rounding controls show (the all-plain route with 256- or
+    1024-key blocks, or P kept in fp32): the whole gradient and the
+    worst leaf their widest gap, the loss their spread, the grad norm
+    what the whole gradient's gate implies. The kernel route with a
+    1024-key window on every layer must break that gate; one without its
+    softcap is read beside it. Then four train steps on
+    one repeated batch, launch counts set to 0 just before and read just
+    after (the Hopper body 2 x 26 x 4 = 208 times a step: the forward
+    and the checkpoint's recompute of each layer in each microbatch),
+    every loss and grad norm finite, the last loss below the first; the
+    step's ms, tokens/s, model TFLOP/s and share of the bf16 peak from
+    ``model_flops_per_token``, device ms by op (K6, the backward's
+    blocked recompute, GEMMs, the optimizer), idle share and peak
+    memory; last, ``python -m repro_torch.launch.train --arch gemma2-2b
+    --steps 30 --fail-at 15`` in-process on the card returns 0 after one
+    restart.
 
 ``--only GROUP[,GROUP...]`` runs some phase groups (``GROUPS``; the
 CC phases 2-5 come with the groups that reuse their graphs). It prints
@@ -1017,6 +1049,52 @@ def argmax_margin(torch, fa_ref, logits, out):
     return (top - chosen) / fa_ref.ulp_bf16(logits.abs().max(dim=-1).values)
 
 
+_FLEX = []                         # compiled flex_attention, made once
+
+
+def flex_library(torch, q, k, v, scale: float, window: int, softcap: float,
+                 cot=None):
+    """One call of ``flex_attention`` (compiled, not used by the port)
+    for the flash kernel's function: causal, the window as a block mask
+    (a window that reaches every key is none), cap * tanh(s / cap) as a
+    ``score_mod``, GQA in place, on [B, H, S, d] copies. Returns (the
+    call, its output as [B, S, H, d]). Given ``cot``, the output's
+    gradient [B, S, H, d], the copies require grad and a third item is
+    the forward + backward call, which returns the copies' gradients."""
+    from torch.nn.attention.flex_attention import create_block_mask, \
+        flex_attention
+    if not _FLEX:
+        _FLEX.append(torch.compile(flex_attention, dynamic=False))
+    flex = _FLEX[0]
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous()
+                  .requires_grad_(cot is not None) for x in (q, k, v))
+    if window >= q.shape[1]:
+        window = 0
+
+    def keep(b, h, qi, ki):
+        return (qi >= ki) & (qi - ki < window) if window else qi >= ki
+
+    def cap(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    mask = create_block_mask(keep, None, None, q.shape[1], k.shape[1],
+                             device=q.device)
+
+    def call():
+        return flex(qt, kt, vt, score_mod=cap, block_mask=mask,
+                    scale=scale, enable_gqa=True)
+
+    out = call()
+    if cot is None:
+        return call, out.transpose(1, 2)
+    cot_t = cot.transpose(1, 2).contiguous()
+
+    def pair():
+        return torch.autograd.grad(call(), (qt, kt, vt), cot_t)
+
+    return call, out.detach().transpose(1, 2), pair
+
+
 def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
     """Phases 11-13: gemma2-2b serving at full width. Adds the
     ``flash_attention`` row to ``rows``; returns the serving numbers."""
@@ -1041,29 +1119,6 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
     def ulps(got, want):
         return (got.float() - want.float()).abs() / fa_ref.ulp_bf16(want)
 
-    def flex_library(q, k, v, scale: float, window: int, softcap: float):
-        """One call of ``flex_attention`` (compiled, not used by the
-        port) for the same function: causal, the window as a block mask,
-        cap * tanh(s / cap) as a ``score_mod``, GQA in place, on
-        [B, H, S, d] copies. Returns (the call, its output as
-        [B, S, H, d])."""
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-
-        def keep(b, h, qi, ki):
-            return (qi >= ki) & (qi - ki < window) if window else qi >= ki
-
-        def cap(score, b, h, qi, ki):
-            return softcap * torch.tanh(score / softcap)
-
-        mask = create_block_mask(keep, None, None, q.shape[1], k.shape[1],
-                                 device=q.device)
-
-        def call():
-            return flex(qt, kt, vt, score_mod=cap, block_mask=mask,
-                        scale=scale, enable_gqa=True)
-
-        return call, call().transpose(1, 2)
-
     def add_flex(row: dict, call, out, want, bound) -> None:
         lib_ms = time_ms(torch, call)
         row.update(library_ms=lib_ms, library_ratio=row["ms"] / lib_ms,
@@ -1082,9 +1137,6 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
                     share_of_bound=b_ms / ms, body=body(q))
 
     # -- 11. flash_attention vs plain at the path's shapes -----------------
-    from torch.nn.attention.flex_attention import create_block_mask, \
-        flex_attention
-    flex = torch.compile(flex_attention, dynamic=False)
     wgmma_build = wgmma_build_report(torch, kernels)
     captured = prefill_attention_inputs(torch, np, dev, cfg, params, 2)
     check([c[3]["window"] for c in captured] == [cfg.window, 0],
@@ -1110,7 +1162,7 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
             plain_ms=time_ms(torch, lambda: fa_ref.ref_flash_attention(
                 q, k, v, **pkw)),
             bound_ms=b_ms, bound_by=by, **rates(q, kw["window"], ms, b_ms))
-        add_flex(fa[name], *flex_library(q, k, v, kw["sm_scale"],
+        add_flex(fa[name], *flex_library(torch, q, k, v, kw["sm_scale"],
                                          kw["window"], kw["softcap"]),
                  want, bound)
         print(f"flash_attention {name} ({card}): {fa[name]}")
@@ -1251,7 +1303,8 @@ def lm_phases(torch, np, dev, rows: dict, card: str) -> dict:
             bound_ms=b_ms, bound_by=by, **rates(ql, window, ms, b_ms),
             library_ms=None)
         if c > 0:
-            call, out = flex_library(ql, kl, vl, 256 ** -0.5, window, c)
+            call, out = flex_library(torch, ql, kl, vl, 256 ** -0.5, window,
+                                     c)
             add_flex(fa[name], call, out[:, -LM_TAIL:], want, bound)
             del call, out
         elif window == 0:
@@ -3724,6 +3777,415 @@ def train_phases(torch, np, dev, rows: dict, card: str) -> dict:
     return {"dcn-v2 train_batch": times}
 
 
+# gemma2-2b training (phase 25): the train_4k cell at full width and
+# depth on a cut global batch, four steps on one repeated batch
+LM_TRAIN_BATCH = 8                 # sequences a step (the reference's: 256)
+LM_TRAIN_STEPS = 4
+LM_TRAIN_SEQ = 4096
+# 25b's gate: the kernel route's gaps to the all-plain route may be at
+# most this many times those of the rounding controls
+LM_TRAIN_GATE_FACTOR = 4
+LM_TRAIN_CONTROLS = ("blocked_256", "blocked_1024", "p_fp32")
+
+
+def range_device_ms(prof, name: str) -> float:
+    """The device ms of the kernels launched inside the profiler ranges
+    called ``name`` (``record_function``), summed."""
+    from torch.autograd import DeviceType
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU) / 1e3
+
+
+def lm_train_phases(torch, np, dev, rows: dict, card: str) -> dict:
+    """Phase 25: gemma2-2b's ``train_4k`` cell at full width and depth
+    (the global batch cut to ``LM_TRAIN_BATCH`` sequences). Adds the
+    training entry (``train``) to the ``flash_attention`` row; returns
+    the step's numbers."""
+    import gc
+    import io
+
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.configs.lm_common import SHAPE_DEFS
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.kernels import autograd
+    from repro_torch.kernels.flash_attention import ops as fa_ops, \
+        ref as fa_ref
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import global_norm, named
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = gemma2_2b.make_config()
+    seq = SHAPE_DEFS["train_4k"]["seq"]
+    check(seq == LM_TRAIN_SEQ, f"train_4k is {seq} tokens")
+    accum = getattr(gemma2_2b, "ACCUM_STEPS", 4)
+    cell = steps.build_cell("gemma2-2b", "train_4k", device=dev)
+    params = T.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                    device=dev, requires_grad=True)
+    state = cell.init_state(params)
+    host = [lm_batch(0, i, LM_TRAIN_BATCH, seq, cfg.vocab) for i in range(2)]
+    torch.cuda.synchronize()
+    n_params = T.param_count(cfg)
+    print(f"phase 25: gemma2-2b train_4k ({card}): {n_params} parameters "
+          f"in {cfg.dtype}, moments {state['opt']['m']['embed'].dtype}, "
+          f"global batch {LM_TRAIN_BATCH} x {seq + 1} tokens (the cell's "
+          f"spec: {SHAPE_DEFS['train_4k']['batch']}), {accum} microbatches "
+          f"of {LM_TRAIN_BATCH // accum}, remat {cfg.remat}, AdamW lr 3e-4; "
+          f"init {time.perf_counter() - t_phase:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    micro = {"tokens": torch.from_numpy(
+        host[0]["tokens"][:LM_TRAIN_BATCH // accum]).to(dev)}
+
+    # -- 25a. the autograd wrapper on the microbatch's layer-0/1 inputs ---
+    captured = []
+    wrapper = L.flash_attention
+    check(wrapper is autograd.flash_attention, "the model's attention does "
+          "not call the kernel's autograd entry")
+
+    def capture(q, k, v, **kw):
+        captured.append((q.detach(), k.detach(), v.detach(), kw))
+        return wrapper(q, k, v, **kw)
+
+    L.flash_attention = capture
+    try:
+        T.forward_hidden({**params, "layers": params["layers"][:2]},
+                         micro["tokens"][:, :-1], cfg)
+    finally:
+        L.flash_attention = wrapper
+    windows = [c[3]["window"] for c in captured]
+    check(windows == [cfg.window, 0], f"the train forward's first two "
+                                      f"attention calls had windows {windows}")
+    fa = {}
+    for name, (q, k, v, kw) in zip(("local", "global"), captured):
+        cot = torch.randn(q.shape, generator=torch.Generator(dev).manual_seed(
+            2), device=dev).to(q.dtype)
+        q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+        pos = torch.arange(q.shape[1], dtype=torch.int32, device=dev)
+        bkw = dict(window=kw["window"], attn_softcap=kw["softcap"],
+                   scale=kw["sm_scale"])
+        pkw = dict(sm_scale=kw["sm_scale"], causal=True, window=kw["window"],
+                   softcap=kw["softcap"])
+        before = (fa_ops.WGMMA.launches, fa_ops.FMA.launches)
+        out = autograd.flash_attention(q, k, v, **kw)
+        got = torch.autograd.grad(out, (q, k, v), cot)
+        torch.cuda.synchronize()
+        check((fa_ops.WGMMA.launches, fa_ops.FMA.launches) == (
+            before[0] + 1, before[1]), f"{name}: the wrapper's forward and "
+            "backward launched the kernel other than once, on the Hopper body")
+
+        def blocked():
+            o = L.attention_blocked(q, k, v, q_positions=pos,
+                                    k_positions=pos, **bkw)
+            return o, torch.autograd.grad(o, (q, k, v), cot)
+        plain_out, want = blocked()
+        for t, a, b in zip("qkv", got, want):
+            check(torch.equal(a, b), f"{name}: d{t} of the wrapper differs "
+                  "from torch.autograd.grad of attention_blocked")
+        ref = fa_ref.ref_flash_attention(q.detach(), k.detach(), v.detach(),
+                                         **pkw)
+        bound = fa_ref.p_rounding_bound(q.detach(), k.detach(), v.detach(),
+                                        **pkw)
+        res = attention_check(fa_ref, out.detach(), ref, f"train {name}",
+                              bound, fa_ref.p_rounding_norm_bound(
+                                  q.detach(), k.detach(), v.detach(), **pkw))
+        torch.cuda.synchronize()
+        b_ms, by = attention_bound(q, k, kw["window"])
+        fwd_ms = time_ms(torch, lambda: fa_ops.flash_attention(
+            q.detach(), k.detach(), v.detach(), **kw))
+        pair_ms = time_ms(torch, lambda: torch.autograd.grad(
+            autograd.flash_attention(q, k, v, **kw), (q, k, v), cot))
+        # forward and backward need the forward's flops and 2.5 times them
+        # (dS, dQ, dK, dV): the bound of the pair
+        pair_bound = max(bound_ms(4 * q.numel() * q.element_size()
+                                  + 4 * k.numel() * k.element_size()),
+                         3.5 * attention_flops(q, kw["window"])
+                         / BF16_OPS_PER_S * 1e3)
+        # the library call: compiled flex_attention, forward and forward +
+        # backward (its own backward kernels), on the same inputs
+        lib_call, lib_out, lib_pair = flex_library(
+            torch, q, k, v, kw["sm_scale"], kw["window"], kw["softcap"],
+            cot=cot)
+        lib = dict(
+            library_ms=time_ms(torch, lib_call),
+            library="flex_attention (torch.compile; tanh softcap score_mod, "
+                    "causal / window block mask, enable_gqa) on [B, H, S, d] "
+                    "copies; fwd_bwd through its own backward",
+            library_max_err_over_gate=float(
+                ((lib_out.float() - ref.float()).abs() / bound).max()))
+        try:
+            lib_grads = lib_pair()
+            lib.update(
+                library_fwd_bwd_ms=time_ms(torch, lib_pair),
+                library_grad_rel_diff={
+                    t: float((a.transpose(1, 2).float() - b.float()).norm()
+                             / b.float().norm())
+                    for t, a, b in zip("qkv", lib_grads, want)})
+            del lib_grads
+        except Exception as exc:       # a yardstick: its failure is shown
+            lib.update(library_fwd_bwd_ms=None,
+                       library_fwd_bwd_error=f"{type(exc).__name__}: "
+                                             f"{str(exc)[:300]}")
+        del lib_call, lib_out, lib_pair
+        fa[name] = dict(
+            shape=f"train {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
+                  f"bf16, window {kw['window']}, softcap {kw['softcap']}, "
+                  f"layer {0 if kw['window'] else 1} of a gemma2-2b "
+                  "train_4k microbatch",
+            **res, ms=fwd_ms,
+            plain_ms=time_ms(torch, lambda: fa_ref.ref_flash_attention(
+                q.detach(), k.detach(), v.detach(), **pkw)),
+            bound_ms=b_ms, bound_by=by, **lib,
+            grads_bit_equal_to_blocked=True,
+            fwd_bwd_ms=pair_ms, backward_ms=pair_ms - fwd_ms,
+            plain_fwd_bwd_ms=time_ms(torch, blocked),
+            fwd_bwd_bound_ms=pair_bound,
+            tflops=attention_flops(q, kw["window"]) / fwd_ms / 1e9,
+            share_of_bound=b_ms / fwd_ms, body="wgmma")
+        print(f"flash_attention {fa[name]['shape']} ({card}): {fa[name]}")
+        del out, got, want, plain_out, ref, bound, cot
+    del captured
+
+    print(f"phase 25a: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 25b. one microbatch: the kernel route against the all-plain route -
+    # (every attention ``attention_blocked``), held to F times the gaps
+    # that the reference's own algorithm shows when only its rounding
+    # moves (its block size 256 or 1024 for 512, or P kept in fp32), and
+    # a kernel with a mask fault (a 1024-key window on every layer) shown
+    # to break that gate
+    leaves = named(params)
+    names = list(leaves)
+
+    def route(attend=None):
+        """(loss, grads) of the microbatch with attention through
+        ``attend`` in place of the flash entry (None: the kernel)."""
+        L.flash_attention = attend or wrapper
+        try:
+            loss = T.loss_fn(params, micro, cfg)
+            return float(loss), torch.autograd.grad(loss,
+                                                    list(leaves.values()))
+        finally:
+            L.flash_attention = wrapper
+
+    def blocked_route(block_k: int = 512, p_fp32: bool = False):
+        def attend(q, k, v, *, sm_scale, causal, window, softcap):
+            pos = torch.arange(q.shape[1], dtype=torch.int32,
+                               device=q.device)
+            return L.attention_blocked(
+                q, k, v.float() if p_fp32 else v, q_positions=pos,
+                k_positions=pos, window=window, attn_softcap=softcap,
+                scale=sm_scale, block_k=block_k)
+        return attend
+
+    def k6_with(**change):
+        return lambda q, k, v, **kw: wrapper(q, k, v, **{**kw, **change})
+
+    fa_ops.KERNEL.launches = 0
+    loss_p, g_p = route(blocked_route())
+    torch.cuda.synchronize()
+    check(fa_ops.KERNEL.launches == 0, "the all-plain route launched K6")
+    norm_p = float(global_norm(dict(zip(names, g_p))))
+    leaf_norms = [float(b.float().norm()) for b in g_p]
+
+    def gaps(loss, grads) -> dict:
+        diff = [float((a.float() - b.float()).norm())
+                for a, b in zip(grads, g_p)]
+        rel = {n: d / r for n, d, r in zip(names, diff, leaf_norms) if r}
+        worst = max(rel, key=rel.get)
+        norm = float(global_norm(dict(zip(names, grads))))
+        return dict(loss=loss, loss_gap=abs(loss - loss_p), grad_norm=norm,
+                    grad_norm_gap=abs(norm - norm_p),
+                    grad_rel_diff=float(np.sqrt(sum(d * d for d in diff)))
+                    / norm_p, worst_leaf=worst,
+                    worst_leaf_rel_diff=rel[worst])
+
+    routes = {"k6": None, "blocked_256": blocked_route(256),
+              "blocked_1024": blocked_route(1024),
+              "p_fp32": blocked_route(p_fp32=True),
+              "k6_window_1024": k6_with(window=LM_TRAIN_SEQ // 4),
+              "k6_no_softcap": k6_with(softcap=0.0)}
+    read = {}
+    for name, attend in routes.items():
+        loss, grads = route(attend)
+        read[name] = gaps(loss, grads)
+        del grads
+    torch.cuda.synchronize()
+    # the gradient's gaps (norms over millions of terms) against the
+    # controls' widest; the loss, one scalar, against the spread of the
+    # four rounding variants (the all-plain route and the controls); the
+    # grad norm within the whole gradient's gate, as |‖a‖ - ‖b‖| <=
+    # ‖a - b‖ (the norm of a difference is steady, the difference of two
+    # norms is not)
+    stats = ("loss_gap", "grad_norm_gap", "grad_rel_diff",
+             "worst_leaf_rel_diff")
+    gate = {x: LM_TRAIN_GATE_FACTOR * max(read[c][x] for c in
+                                          LM_TRAIN_CONTROLS)
+            for x in stats[2:]}
+    variants = [loss_p] + [read[c]["loss"] for c in LM_TRAIN_CONTROLS]
+    gate["loss_gap"] = LM_TRAIN_GATE_FACTOR * (max(variants) - min(variants))
+    gate["grad_norm_gap"] = gate["grad_rel_diff"] * norm_p
+    parity = dict(loss_plain=loss_p, grad_norm_plain=norm_p, gate=gate,
+                  **read)
+    for name, r in read.items():
+        print(f"microbatch parity {name} ({card}): {r}; over the gate "
+              f"{ {x: r[x] / gate[x] for x in stats} }")
+    check(np.isfinite(read["k6"]["loss"])
+          and np.isfinite(read["k6"]["grad_norm"]),
+          "the kernel route's loss or grad norm is not finite")
+    over = [x for x in stats if read["k6"][x] > gate[x]]
+    check(not over, f"the kernel route is beyond {LM_TRAIN_GATE_FACTOR} "
+          f"times the rounding controls' gaps in {over}: {parity}")
+    caught = [x for x in stats if read["k6_window_1024"][x] > gate[x]]
+    check(bool(caught), "the gate does not catch a kernel whose window is "
+          f"1024 keys: {read['k6_window_1024']} against {gate}")
+    parity["mask_fault_caught_by"] = caught
+    parity["no_softcap_caught_by"] = [
+        x for x in stats if read["k6_no_softcap"][x] > gate[x]]
+    del g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"phase 25b: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 25c. four steps on one repeated batch, counts set to 0 just before
+    batch = host[0]
+    parity_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.KERNEL.launches = 0
+    metrics, step_s = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(cell.step(state, batch)[1])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = {"wgmma": fa_ops.WGMMA.launches, "fma": fa_ops.FMA.launches}
+    steps_peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    for i, (lo, gn) in enumerate(zip(losses, norms)):
+        print(f"lm train step {i + 1}: loss {lo:.6f} grad_norm {gn:.6f} "
+              f"({step_s[i] * 1e3:.1f} ms)")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          "an LM train step's loss or grad norm is not finite")
+    check(losses[-1] < losses[0], f"the loss did not fall over "
+                                  f"{LM_TRAIN_STEPS} steps: {losses}")
+    per_step = 2 * cfg.n_layers * accum
+    check(launches == {"wgmma": per_step * LM_TRAIN_STEPS, "fma": 0},
+          f"the train steps launched {launches}, expected the Hopper body "
+          f"{per_step} times a step (forward and remat recompute, "
+          f"{cfg.n_layers} layers, {accum} microbatches)")
+    check(int(state["step"]) == LM_TRAIN_STEPS, "the state's step")
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    tokens = LM_TRAIN_BATCH * seq
+    flops = T.model_flops_per_token(cfg) * tokens
+    print(f"lm train path ({LM_TRAIN_STEPS} steps): K6 launches {launches} "
+          f"({per_step} a step, all on the Hopper body); step "
+          f"{step_ms:.1f} ms (median of steps 2-{LM_TRAIN_STEPS}, host clock "
+          f"to a synchronize), peak {steps_peak:.2f} GiB")
+
+    # -- 25d. where the device time goes -----------------------------------
+    # A whole step is ~10^5 kernels and more ops, which the profiler takes
+    # minutes to parse: profile one microbatch's forward and backward (a
+    # step runs 4, then the accumulation and the update) and, alone, the
+    # optimizer's update of the whole state on that microbatch's gradient.
+    from repro_torch.train.optimizer import AdamWConfig, adamw
+    t_prof = time.perf_counter()
+
+    def microbatch():
+        return torch.autograd.grad(T.loss_fn(params, micro, cfg),
+                                   list(leaves.values()))
+    mb_ms = time_ms(torch, microbatch, reps=2)
+    prof = profiled(torch, microbatch)
+    # the backward's range also comes back as a device-side span
+    ev = [e for e in prof.key_averages()
+          if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+          and e.key != "flash_attention_backward"]
+    mb_device = sum(e.self_device_time_total for e in ev) / 1e3
+
+    def kernels_ms(*marks):
+        return sum(e.self_device_time_total for e in ev
+                   if any(m in e.key.lower() for m in marks)) / 1e3
+    k6_ms = kernels_ms("flash_wgmma_kernel", "flash_kernel")
+    gemm_ms = kernels_ms("gemm", "xmma", "cutlass", "nvjet")
+    by_op = {"k6_forward": k6_ms,
+             "attention_backward_blocked_recompute": range_device_ms(
+                 prof, "flash_attention_backward"),
+             "gemms_all": gemm_ms, "gemms_bf16": kernels_ms("nvjet"),
+             "other": mb_device - k6_ms - gemm_ms}
+    top = top_device_ops(ev, 1, n=12)
+    grads = dict(zip(leaves, microbatch()))
+    opt = adamw(AdamWConfig(lr=3e-4, decays=T.decays))
+    opt_ms = time_ms(torch, lambda: opt.update(grads, state["opt"], leaves,
+                                               state["step"]), reps=2)
+    opt_device = device_ms(torch, lambda: opt.update(
+        grads, state["opt"], leaves, state["step"]), reps=1)
+    del grads, prof
+    prof_s = time.perf_counter() - t_prof
+    times = {
+        "step_ms": step_ms, "step_s_each": step_s,
+        "tokens_per_step": tokens, "tokens_per_s": tokens / step_ms * 1e3,
+        "model_flops_per_token": T.model_flops_per_token(cfg),
+        "model_tflops_per_s": flops / step_ms / 1e9,
+        "bf16_peak_share": flops / step_ms / 1e9 / (BF16_OPS_PER_S / 1e12),
+        "microbatch_ms": mb_ms, "microbatch_device_ms": mb_device,
+        "idle_share": 1 - mb_device / mb_ms if ev else None,
+        "microbatch_device_ms_by_op": by_op,
+        "optimizer_ms": opt_ms, "optimizer_device_ms": opt_device,
+        "step_rest_ms": step_ms - accum * mb_ms,
+        "profile_s": prof_s, "microbatch_top_device_ops": top,
+        "k6_launches_per_step": per_step, "losses": losses,
+        "grad_norms": norms, "microbatch_parity": parity,
+        "steps_peak_gib": steps_peak, "parity_peak_gib": parity_peak,
+        "card": card}
+    print(f"lm train step ({card}): {step_ms:.1f} ms, "
+          f"{times['tokens_per_s']:.0f} tokens/s, "
+          f"{times['model_tflops_per_s']:.1f} model TFLOP/s "
+          f"({times['bf16_peak_share']:.4f} of the bf16 peak); a microbatch "
+          f"{mb_ms:.1f} ms, device {mb_device:.1f} ms, idle share "
+          f"{times['idle_share']}, by op {by_op}; the optimizer {opt_ms:.1f} "
+          f"ms (device {opt_device}); the step beyond {accum} microbatches "
+          f"{times['step_rest_ms']:.1f} ms; top {top}")
+
+    # -- 25e. the launcher, in-process on the card -------------------------
+    print(f"phase 25d: {time.perf_counter() - t_phase:.1f} s")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(["--arch", "gemma2-2b", "--steps", "30",
+                                "--fail-at", "15"])
+    out = out.getvalue().strip()
+    print(out)
+    check(rc == 0 and " 1 restarts" in out and "on cuda" in out,
+          f"the LM launcher returned {rc}: {out!r}")
+
+    entry = dict(fa["global"], launches=launches["wgmma"] + launches["fma"],
+                 launches_per_step=per_step, body="wgmma",
+                 microbatch_k6_device_ms=k6_ms,
+                 microbatch_backward_device_ms=by_op[
+                     "attention_backward_blocked_recompute"],
+                 also=[fa["local"]])
+    row = rows.setdefault("flash_attention", dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:102",
+        **{k: v for k, v in entry.items() if k != "also"}))
+    row["train"] = entry
+    del state, params, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    times["phase_peak_gib"] = max(parity_peak, steps_peak)
+    times["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 25: {times['phase_s']:.1f} s, peak "
+          f"{times['phase_peak_gib']:.2f} GiB")
+    return {"gemma2-2b train_4k": times}
+
+
 def cc_phases(torch, np, dev, rows: dict, card: str) -> tuple:
     """Phases 2-5: the CC kernels against their plain versions, the main
     path at full scale, the parity constants, the solve times. Adds the
@@ -4093,7 +4555,7 @@ KERNEL_ROWS = ("cc_fused", "cc_fused_batched", "hook", "hook_snapshot",
 # phase groups, in run order; ``--only`` runs some of them (the CC phases
 # 2-5 come along with any group that reuses their graphs)
 GROUPS = ("cc", "recsys", "lm", "front_door", "dynamic", "batched",
-          "service", "distributed", "fleet", "mla_moe", "train")
+          "service", "distributed", "fleet", "mla_moe", "train", "lm_train")
 NEEDS_CC = ("front_door", "dynamic", "distributed")
 
 
@@ -4179,9 +4641,11 @@ def main(argv=None) -> int:
     graphs = oracles = None
     if "mla_moe" in only:
         e2e.update(mla_moe_phases(torch, np, dev, rows, card))
-    # 24. DCN-v2 training
+    # 24. DCN-v2 training; 25. gemma2-2b training
     if "train" in only:
         e2e.update(train_phases(torch, np, dev, rows, card))
+    if "lm_train" in only:
+        e2e.update(lm_train_phases(torch, np, dev, rows, card))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -24,7 +24,7 @@ def make_config() -> LMConfig:
         head_dim=256, d_ff=9216, vocab=256000, window=4096,
         layer_pattern="local_global", attn_softcap=50.0,
         final_softcap=30.0, post_norm=True, embed_scale=True,
-        tie_embed=True, act="gelu", dtype=torch.bfloat16)
+        tie_embed=True, act="gelu", dtype=torch.bfloat16, remat=True)
 
 
 def make_smoke_config() -> LMConfig:
@@ -33,7 +33,7 @@ def make_smoke_config() -> LMConfig:
         n_kv_heads=2, head_dim=16, d_ff=160, vocab=128, window=8,
         layer_pattern="local_global", attn_softcap=50.0,
         final_softcap=30.0, post_norm=True, embed_scale=True,
-        act="gelu", dtype=torch.float32)
+        act="gelu", dtype=torch.float32, remat=False)
 
 
 def step_kind(shape: str) -> str:

@@ -5,9 +5,10 @@ Registered at full width and depth: 316,489,340,928 parameters, 633 GB
 in bf16, which one 80 GB card cannot hold. The card runs it at full
 width with the depth cut to 6 of 64 layers (31,130,499,072 parameters,
 62.3 GB); the smoke config carries the tests. Its prefill attention is
-48 query / 8 kv heads of 128, the flash kernel's Hopper body. The
-optimizer settings of the reference's config (bf16 moments, 16
-accumulation steps) come with LM training (ROADMAP A11.3)."""
+48 query / 8 kv heads of 128, the flash kernel's Hopper body. Training
+keeps the optimizer moments in bf16 and accumulates 16 microbatches,
+in bf16 too, as the reference's config sets it (``launch.steps``
+reads ``MOMENT_DTYPE`` and ``ACCUM_STEPS``)."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +21,9 @@ ARCH_ID = "grok-1-314b"
 FAMILY = "lm"
 SHAPES = LC.SHAPES
 
+MOMENT_DTYPE = torch.bfloat16   # AdamW moments and gradient accumulator
+ACCUM_STEPS = 16                # microbatches a train_4k step
+
 
 def make_config() -> LMConfig:
     return LMConfig(
@@ -27,7 +31,7 @@ def make_config() -> LMConfig:
         head_dim=128, d_ff=32768, vocab=131072,
         moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=32768,
                       capacity_factor=1.25),
-        dtype=torch.bfloat16)
+        dtype=torch.bfloat16, remat=True)
 
 
 def make_smoke_config() -> LMConfig:
@@ -35,7 +39,7 @@ def make_smoke_config() -> LMConfig:
         name=ARCH_ID + "-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2, head_dim=16, d_ff=160, vocab=128,
         moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=96),
-        dtype=torch.float32)
+        dtype=torch.float32, remat=False)
 
 
 def step_kind(shape: str) -> str:

@@ -3,8 +3,9 @@
 
 LM shapes are seq_len x global batch. ``decode_*`` / ``long_*`` are one
 new token against a KV cache of seq_len (the serving decode step);
-``prefill_*`` is the prompt pass; ``train_*`` the training step (not
-ported). Specs are trees of ``(shape, torch dtype)``; building one
+``prefill_*`` is the prompt pass; ``train_*`` the training step
+(``batch["tokens"]`` [B, S + 1] int32: S inputs and their next
+tokens). Specs are trees of ``(shape, torch dtype)``; building one
 allocates nothing.
 """
 from __future__ import annotations

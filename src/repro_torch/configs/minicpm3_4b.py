@@ -24,7 +24,7 @@ def make_config() -> LMConfig:
         head_dim=64, d_ff=6400, vocab=73448, attention="mla",
         mla=MLAConfig(q_lora_rank=768, kv_lora_rank=256, qk_nope_dim=64,
                       qk_rope_dim=32, v_head_dim=64),
-        dtype=torch.bfloat16)
+        dtype=torch.bfloat16, remat=True)
 
 
 def make_smoke_config() -> LMConfig:
@@ -33,7 +33,7 @@ def make_smoke_config() -> LMConfig:
         n_kv_heads=4, head_dim=16, d_ff=160, vocab=128, attention="mla",
         mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,
                       qk_rope_dim=8, v_head_dim=16),
-        dtype=torch.float32)
+        dtype=torch.float32, remat=False)
 
 
 def step_kind(shape: str) -> str:

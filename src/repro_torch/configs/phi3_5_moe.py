@@ -26,7 +26,7 @@ def make_config() -> LMConfig:
         head_dim=128, d_ff=6400, vocab=32064,
         moe=MoEConfig(num_experts=16, top_k=2, d_ff_expert=6400,
                       capacity_factor=1.25),
-        dtype=torch.bfloat16)
+        dtype=torch.bfloat16, remat=True)
 
 
 def make_smoke_config() -> LMConfig:
@@ -34,7 +34,7 @@ def make_smoke_config() -> LMConfig:
         name=ARCH_ID + "-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2, head_dim=16, d_ff=160, vocab=128,
         moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=96),
-        dtype=torch.float32)
+        dtype=torch.float32, remat=False)
 
 
 def step_kind(shape: str) -> str:

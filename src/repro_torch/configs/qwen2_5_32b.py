@@ -13,20 +13,21 @@ from repro_torch.models.transformer import LMConfig
 ARCH_ID = "qwen2.5-32b"
 FAMILY = "lm"
 SHAPES = LC.SHAPES
+ACCUM_STEPS = 16                # microbatches a train_4k step
 
 
 def make_config() -> LMConfig:
     return LMConfig(
         name=ARCH_ID, n_layers=64, d_model=5120, n_heads=40, n_kv_heads=8,
         head_dim=128, d_ff=27648, vocab=152064, qkv_bias=True,
-        rope_theta=1_000_000.0, dtype=torch.bfloat16)
+        rope_theta=1_000_000.0, dtype=torch.bfloat16, remat=True)
 
 
 def make_smoke_config() -> LMConfig:
     return LMConfig(
         name=ARCH_ID + "-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2, head_dim=16, d_ff=160, vocab=128, qkv_bias=True,
-        dtype=torch.float32)
+        dtype=torch.float32, remat=False)
 
 
 def step_kind(shape: str) -> str:

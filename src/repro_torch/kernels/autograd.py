@@ -1,5 +1,5 @@
-"""The gradients of the two recsys kernels, which pair them: each one's
-backward runs on the other.
+"""The gradients of the kernels that a training step runs through.
+The two recsys kernels pair up: each one's backward runs on the other.
 
 * ``embedding_bag``: a lookup whose table requires grad (with grad mode
   on) goes through a ``torch.autograd.Function``. The forward is the
@@ -13,6 +13,11 @@ backward runs on the other.
   ids get no gradient, and a gradient through ``min`` or ``max`` raises:
   the reference's models never take one.
 
+* ``flash_attention``: attention whose q, k or v requires grad goes
+  through a Function whose forward is the flash-attention kernel and
+  whose backward differentiates ``flash_attention.blocked``'s
+  ``attention_blocked`` (torch ops; see ``_FlashAttention``).
+
 Without a gradient to take, each call is the kernel wrapper's own. On
 the CPU the wrappers run the plain versions, so the backward does too.
 The reference has no custom VJP: it differentiates ``jnp.take`` (a
@@ -24,6 +29,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.blocked import attention_blocked
 from repro_torch.kernels.segment_reduce import ops as sr_ops
 
 
@@ -50,6 +57,25 @@ def segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor,
                                  indices_are_sorted)
     return sr_ops.segment_reduce(data, segment_ids, num_segments, op=op,
                                  indices_are_sorted=indices_are_sorted)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    sm_scale: float | None = None, causal: bool = True,
+                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """``flash_attention.ops.flash_attention``, with a gradient to q, k
+    and v when one of them requires grad (``_FlashAttention``). Only
+    causal attention has one: the backward's mask is causal."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if not causal:
+            raise NotImplementedError("flash_attention has a gradient only "
+                                      "for causal attention")
+        scale = float(sm_scale) if sm_scale is not None else \
+            q.shape[-1] ** -0.5
+        return _FlashAttention.apply(q, k, v, scale, int(window),
+                                     float(softcap))
+    return fa_ops.flash_attention(q, k, v, sm_scale=sm_scale, causal=causal,
+                                  window=window, softcap=softcap)
 
 
 def table_grad(grad_out: torch.Tensor, indices: torch.Tensor, rows: int,
@@ -118,3 +144,49 @@ class _SegmentSum(torch.autograd.Function):
         (segment_ids,) = ctx.saved_tensors
         return gather_rows(grad_out, segment_ids, ctx.num_segments), \
             None, None, None
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Causal flash attention with a backward.
+
+    The forward is the kernel wrapper's: on a CUDA tensor the
+    flash-attention kernel (the Hopper body for bfloat16 at d = 64, 128,
+    256, the FMA body otherwise), on a CPU one its plain version. It
+    keeps q, k, v and the call's arguments.
+
+    The backward runs ``attention_blocked`` again on detached q, k, v
+    (positions 0.. on both sides, the same scale, window and softcap)
+    under grad and takes ``torch.autograd.grad`` of it against the
+    output's gradient: the blocked online-softmax recompute,
+    differentiated, one kv block's score tile at a time. That is torch
+    ops, not a kernel, because the reference has none to port: it
+    defines no custom VJP and no backward Pallas kernel, and XLA
+    differentiates its blocked attention outside any kernel. The forward
+    output and the recompute differ by the forward's rounding (the
+    Hopper body's P rounding, ``ref.p_rounding_bound``); the gradients
+    are exactly those of ``attention_blocked``. The backward runs under
+    the profiler range ``flash_attention_backward``.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (scale, window, softcap)
+        return fa_ops.flash_attention(q, k, v, sm_scale=scale, causal=True,
+                                      window=window, softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        scale, window, softcap = ctx.args
+        q, k, v = (t.detach().requires_grad_(True)
+                   for t in ctx.saved_tensors)
+        dev = q.device
+        with torch.enable_grad(), \
+                torch.profiler.record_function("flash_attention_backward"):
+            out = attention_blocked(
+                q, k, v,
+                q_positions=torch.arange(q.shape[1], device=dev),
+                k_positions=torch.arange(k.shape[1], device=dev),
+                window=window, attn_softcap=softcap, scale=scale)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None, None, None

@@ -8,11 +8,17 @@ cell allocates nothing. A step takes the model and host (numpy) inputs,
 moves the inputs to the cell's device and runs there:
 
   * ``train``     — ``step(state, batch)`` -> (state, {"loss",
-                    "grad_norm"}): one AdamW step (lr 1e-3, as the
-                    reference's ``_build_recsys`` sets it) on a
+                    "grad_norm"}): one AdamW step on a
                     ``train.train_state`` state, written in place;
                     ``cell.init_state(model)`` makes that state over a
-                    trainable model;
+                    trainable model. Recsys: lr 1e-3, as the
+                    reference's ``_build_recsys`` sets it. LM: lr 3e-4,
+                    the arch's ``MOMENT_DTYPE`` (None: the parameter's
+                    dtype) for the moments and the gradient
+                    accumulator, ``ACCUM_STEPS`` microbatches (4 unless
+                    the arch sets it), weight decay on every layer's
+                    leaf (``transformer.decays``), as the reference's
+                    ``_build_lm``;
   * ``serve``     — ``step(model, batch)`` -> logits [B];
   * ``retrieval`` — ``step(model, batch, candidate_ids)`` -> scores [N];
   * ``prefill``   — ``step(params, tokens, cache)`` -> (logits [B, S, V],
@@ -102,14 +108,27 @@ def _build_recsys(arch_id: str, shape: str, device: torch.device) -> Cell:
 def _build_lm(arch_id: str, shape: str, device: torch.device) -> Cell:
     mod = get_arch(arch_id)
     kind = mod.step_kind(shape)
-    if kind == "train":
-        raise NotImplementedError(
-            f"{arch_id} {shape}: LM training is not ported yet (ROADMAP "
-            "A11.3: the LM loss and an autograd wrapper of the attention "
-            "kernel)")
     cfg = mod.make_config()
     specs = mod.input_specs(shape)
     params = T.param_specs(cfg)
+    if kind == "train":
+        moment_dtype = getattr(mod, "MOMENT_DTYPE", None)
+        opt = adamw(AdamWConfig(lr=3e-4, moment_dtype=moment_dtype,
+                                decays=T.decays))
+        raw = train_state.make_train_step(
+            lambda model, batch: T.loss_fn(model, batch, cfg), opt,
+            accum_steps=getattr(mod, "ACCUM_STEPS", 4),
+            accum_dtype=moment_dtype)
+
+        def step(state, batch):
+            return raw(state, _batch_on(batch, device))
+        moments = {n: (s, moment_dtype or dt) for n, (s, dt) in
+                   params.items()}
+        state = {"params": params, "opt": {"m": moments, "v": moments},
+                 "step": ((), torch.int32)}
+        return Cell(arch_id, shape, kind, step,
+                    args=(state, specs["batch"]),
+                    init_state=lambda model: train_state.create(model, opt))
     if kind == "prefill":
         def step(model, tokens, cache):
             tokens = _on(tokens, device)

@@ -7,10 +7,11 @@ checkpoints, restart on failure and the step-time watchdog. It runs on
 CUDA unless ``--device`` names another device (``--device cpu``), and
 raises without CUDA otherwise.
 
-Only the recsys family trains so far; the LM and GNN families raise
-``NotImplementedError`` (ROADMAP A11.3 and A11.4).
+The recsys and LM families train; the GNN family raises
+``NotImplementedError`` (ROADMAP A11.4).
 
 Examples:
+  python -m repro_torch.launch.train --arch gemma2-2b --steps 100
   python -m repro_torch.launch.train --arch dcn-v2 --steps 200
   python -m repro_torch.launch.train --arch dcn-v2 --steps 30 \\
       --fail-at 15 --ckpt build/ck_dcn
@@ -31,24 +32,22 @@ from repro_torch.train.fault_tolerance import (SimulatedFailure, StepWatchdog,
                                                run_with_restarts)
 from repro_torch.train.optimizer import AdamWConfig, adamw, cosine_schedule
 
-_NOT_PORTED = {
-    "lm": "LM training is not ported yet (ROADMAP A11.3)",
-    "gnn": "GNN training is not ported yet (ROADMAP A11.4)",
-}
-
-
 def _model_api(arch_id: str):
     """The model module of ``arch_id``'s family."""
-    mod = get_arch(arch_id)    # raises for the GNN ids, naming A11.4
-    if mod.FAMILY != "recsys":
-        raise NotImplementedError(f"{arch_id}: {_NOT_PORTED[mod.FAMILY]}")
+    if get_arch(arch_id).FAMILY == "lm":   # raises for the GNN ids (A11.4)
+        from repro_torch.models import transformer as M
+        return M
     from repro_torch.models import recsys as M
     return M
 
 
-def _smoke_stream(cfg, seed: int, batch: int):
-    """(start_step -> iterator) of recsys batches, smoke-sized."""
+def _smoke_stream(family: str, cfg, seed: int, batch: int):
+    """(start_step -> iterator) of the family's batches, smoke-sized:
+    LM sequences of 32 tokens, or recsys batches."""
     def make(start):
+        if family == "lm":
+            return dp.make_stream(dp.lm_batches, seed, batch, 32, cfg.vocab,
+                                  start_step=start)
         return dp.make_stream(dp.recsys_batches, seed, batch, cfg.n_dense,
                               cfg.table_sizes, start_step=start)
     return make
@@ -73,11 +72,18 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     M = _model_api(args.arch)
+    family = get_arch(args.arch).FAMILY
     cfg = get_arch(args.arch).make_smoke_config()
     dev = resolve_device(args.device)
-    opt = adamw(AdamWConfig(
-        lr=cosine_schedule(args.lr, warmup=10, total=args.steps)))
-    raw_step = train_state.make_train_step(M.loss_fn, opt)
+    lr = cosine_schedule(args.lr, warmup=10, total=args.steps)
+    if family == "recsys":
+        loss, opt = M.loss_fn, adamw(AdamWConfig(lr=lr))
+    else:
+        opt = adamw(AdamWConfig(lr=lr, decays=M.decays))
+
+        def loss(params, batch):
+            return M.loss_fn(params, batch, cfg)
+    raw_step = train_state.make_train_step(loss, opt)
     failed = {"done": False}
 
     def step_fn(state, batch):
@@ -98,7 +104,7 @@ def main(argv=None) -> int:
         report = run_with_restarts(
             init_state_fn=init_state,
             step_fn=step_fn,
-            stream_fn=_smoke_stream(cfg, args.seed, args.batch),
+            stream_fn=_smoke_stream(family, cfg, args.seed, args.batch),
             total_steps=args.steps,
             ckpt_dir=args.ckpt or tmp,
             ckpt_every=args.ckpt_every,

@@ -1,25 +1,29 @@
-"""Shared neural-net layers, the part of ``repro.models.layers`` that
-the recsys model (initialisers, the plain MLP tower) and the LM serving
-path (norms, rotary embeddings, attention, gated MLPs) need. Random
-initialisation always draws from an explicit ``torch.Generator``.
+"""Shared neural-net layers, the port of ``repro.models.layers``: what
+the recsys model (initialisers, the plain MLP tower) and the LM
+(norms, rotary embeddings, attention, gated MLPs, the losses) need.
+Random initialisation always draws from an explicit
+``torch.Generator``.
 
 Rounding follows the reference: norms and rotary embeddings compute in
 float32 and cast back; attention scores are float32 whatever the model
 dtype. Prefill attention (every ``Sq > 1`` call over fresh keys at
 positions 0..) runs through the flash-attention kernel, MLA's too (its
-head dims zero-padded to one the kernel takes); the rest, the decode
-step over the caches above all, through ``attention_dense``.
+head dims zero-padded to one the kernel takes), through the kernel's
+autograd entry (``kernels.autograd``): with a gradient to take, its
+backward differentiates ``attention_blocked``. The rest, the decode step
+over the caches above all, goes through ``attention_dense``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, \
-    flash_attention
-
-NEG_INF = -1e30        # the reference's mask constant
+from repro_torch.kernels.autograd import flash_attention
+from repro_torch.kernels.flash_attention.blocked import (  # noqa: F401
+    NEG_INF, attention_blocked, attention_scores_mask, softcap)
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 
 
 def from_numpy(a) -> torch.Tensor:
@@ -108,23 +112,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Attention
 # --------------------------------------------------------------------------
 
-def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
-    return cap * torch.tanh(x / cap) if cap > 0.0 else x
-
-
-def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
-                          window: int) -> torch.Tensor:
-    """Causal (+ sliding ``window``, 0 = none) mask. Positions [S] give
-    [Sq, Sk]; [B, S] give [B, Sq, Sk]. Negative k positions mark empty
-    cache slots and are always masked."""
-    q = q_pos[..., :, None]
-    k = k_pos[..., None, :]
-    mask = (q >= k) & (k >= 0)
-    if window > 0:
-        mask &= (q - k) < window
-    return mask
-
-
 def attention_dense(q, k, v, *, q_positions, k_positions, window: int,
                     attn_softcap: float, scale: float, kv_mask=None
                     ) -> torch.Tensor:
@@ -162,11 +149,13 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A prefill over fresh keys (``Sq > 1``, shared 1-D positions,
     ``k_positions is q_positions``, no ``kv_mask``) is exactly the
     flash kernel's contract: positions 0.. on both sides, causal, the
-    layer's window and softcap. It goes to ``flash_attention`` (the
-    kernel on a CUDA tensor, its plain version on a CPU one). Head dims
-    the kernel does not take (MLA's d = 96, dv = 64) are zero-padded to
-    the smallest of ``HEAD_DIMS`` that holds both, with the scale given
-    for the true d, and the output cut back to dv: a zero column adds an
+    layer's window and softcap. It goes to ``flash_attention``, the
+    kernel's autograd entry (the kernel on a CUDA tensor, its plain
+    version on a CPU one; with grad on and q, k or v requiring it, a
+    backward that differentiates ``attention_blocked``). Head dims the
+    kernel does not take (MLA's d = 96, dv = 64) are zero-padded to the
+    smallest of ``HEAD_DIMS`` that holds both, with the scale given for
+    the true d, and the output cut back to dv: a zero column adds an
     exact zero to every dot product and to the PV sum. Everything else,
     the decode step over the caches' stored positions above all, goes to
     ``attention_dense``."""
@@ -214,3 +203,61 @@ def gated_mlp_params(d_model: int, d_ff: int, dtype: torch.dtype, *,
         "w_up": normal_init((d_model, d_ff), d_model ** -0.5, dtype, **g),
         "w_down": normal_init((d_ff, d_model), d_ff ** -0.5, dtype, **g),
     }
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-level cross-entropy; logits [*, V] in any dtype (float32
+    inside), labels [*]. With ``mask`` the mean over its weight, at
+    least 1."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(
+        -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
+
+
+def _chunk_nll(xc, lc, head, final_softcap: float):
+    """One chunk's summed NLL over its valid labels (>= 0) and their
+    count, both float32."""
+    logits = softcap((xc @ head).float(), final_softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    valid = (lc >= 0).float()
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def chunked_lm_loss(x: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, *, final_softcap: float = 0.0,
+                    seq_chunk: int = 512) -> torch.Tensor:
+    """Memory-lean LM cross-entropy, the reference's: x [B, S, D] final
+    hidden states, head [D, V], labels [B, S]. The sequence goes in
+    chunks of ``seq_chunk`` tokens (the last padded with label -1); a
+    chunk's logits are the head product in the model dtype, then float32
+    and the final softcap, and give its NLL sum (logsumexp minus the
+    gold logit) over the valid labels. The loss is that total over
+    ``max(count, 1)``. With grad on, each chunk runs under
+    ``checkpoint``, so the [B, S, V] float32 logits never exist: the
+    backward recomputes one [B, chunk, V] tile at a time."""
+    b, s, _ = x.shape
+    nchunk = -(-s // seq_chunk)
+    pad = nchunk * seq_chunk - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
+    for c in range(nchunk):
+        cut = slice(c * seq_chunk, (c + 1) * seq_chunk)
+        args = (x[:, cut], labels[:, cut], head, final_softcap)
+        t, n = checkpoint(_chunk_nll, *args, use_reentrant=False) if remat \
+            else _chunk_nll(*args)
+        total = total + t
+        count = count + n
+    return total / torch.clamp(count, min=1.0)

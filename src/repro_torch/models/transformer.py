@@ -24,6 +24,13 @@ per-slot positions (-1 = empty), through the dense path. Unlike the
 reference, the cache is updated IN PLACE and returned. An MLA layer
 caches its normed latent ``ckv`` and roped ``kr`` and re-expands k and
 v from them at every decode step (the reference's cache-lean variant).
+
+Training (``loss_fn``): next-token cross-entropy through
+``layers.chunked_lm_loss`` plus the MoE load-balancing aux loss summed
+over the layers. With ``cfg.remat`` and grad on, each block (a
+(local, global) pair, else a layer) runs under ``checkpoint``, as the
+reference's scanned block runs under ``jax.checkpoint``; prefill-shaped
+attention takes the flash kernel's autograd wrapper.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.graphs.device import resolve_device
 from repro_torch.models import layers as L
@@ -72,6 +80,7 @@ class LMConfig:
     tie_embed: bool = False           # lm_head = embed.T (gemma2)
     act: str = "silu"
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True                # recompute each block in backward
 
     def __post_init__(self):
         if self.attention not in ("gqa", "mla"):
@@ -188,14 +197,31 @@ def param_count(cfg: LMConfig) -> int:
     return sum(math.prod(s) for s in flatten(param_shapes(cfg)).values())
 
 
+def decays(name: str, p: torch.Tensor) -> bool:
+    """Whether AdamW's weight decay applies to parameter ``name``, as it
+    does in the reference: there every layer's leaf is stacked
+    [n_stack, ...] and so a matrix, which the reference's rule
+    (``ndim >= 2``) decays, norm weights and biases included; of the
+    rest, the matrices (``train.optimizer.AdamWConfig.decays``)."""
+    return name.startswith("layers.") or p.dim() >= 2
+
+
+def _trainable(params: dict, requires_grad: bool) -> dict:
+    if requires_grad:
+        for t in flatten(params).values():
+            t.requires_grad_(True)
+    return params
+
+
 def init(cfg: LMConfig, *, generator: torch.Generator | None = None,
-         device=None) -> dict:
+         device=None, requires_grad: bool = False) -> dict:
     """Random parameters on ``device`` (CUDA unless given; raises
     without CUDA unless ``device="cpu"``) with the reference's
     initialisation: embedding N(0, 0.02²), projections, the MoE router
     (float32) and experts N(0, 1/fan_in), biases and norm weights 0.
     Every draw comes from ``generator`` (a generator of that device
-    seeded 0 when None)."""
+    seeded 0 when None). ``requires_grad`` makes every leaf trainable
+    (``train.train_state.create`` takes only such parameters)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
@@ -226,19 +252,12 @@ def init(cfg: LMConfig, *, generator: torch.Generator | None = None,
     if not cfg.tie_embed:
         out["lm_head"] = L.normal_init((d, cfg.padded_vocab), d ** -0.5,
                                        cfg.dtype, **g)
-    return out
+    return _trainable(out, requires_grad)
 
 
-def params_from_reference(tree: dict, cfg: LMConfig, *, device) -> dict:
-    """The port's parameters holding exactly the values of the
-    reference's tree (``embed``, ``blocks`` stacked [n_stack, ...],
-    ``final_norm``, ``lm_head``) given as host arrays. For
-    ``local_global`` block i's ``local`` half becomes layer 2i and its
-    ``global`` half layer 2i + 1. Raises if a shape or dtype differs
-    from ``param_specs(cfg)``'s (the MoE router float32, the rest the
-    config's dtype)."""
-    dev = resolve_device(device)
-
+def _unstacked(tree: dict, cfg: LMConfig, dev: torch.device) -> dict:
+    """A tree of the reference's layout (``blocks`` stacked) in the
+    port's (``layers``, a list), its host arrays moved to ``dev``."""
     def conv(a):
         return L.from_numpy(a).to(dev)
 
@@ -258,6 +277,19 @@ def params_from_reference(tree: dict, cfg: LMConfig, *, device) -> dict:
            "final_norm": conv(tree["final_norm"])}
     if "lm_head" in tree:
         out["lm_head"] = conv(tree["lm_head"])
+    return out
+
+
+def params_from_reference(tree: dict, cfg: LMConfig, *, device,
+                          requires_grad: bool = False) -> dict:
+    """The port's parameters holding exactly the values of the
+    reference's tree (``embed``, ``blocks`` stacked [n_stack, ...],
+    ``final_norm``, ``lm_head``) given as host arrays. For
+    ``local_global`` block i's ``local`` half becomes layer 2i and its
+    ``global`` half layer 2i + 1. Raises if a shape or dtype differs
+    from ``param_specs(cfg)``'s (the MoE router float32, the rest the
+    config's dtype). ``requires_grad`` as in ``init``."""
+    out = _unstacked(tree, cfg, resolve_device(device))
     got, want = flatten(out), param_specs(cfg)
     if {k: tuple(v.shape) for k, v in got.items()} != \
             {k: s for k, (s, _) in want.items()}:
@@ -266,7 +298,39 @@ def params_from_reference(tree: dict, cfg: LMConfig, *, device) -> dict:
         if t.dtype != want[name][1]:
             raise ValueError(f"{name} is {t.dtype}, the config says "
                              f"{want[name][1]}")
-    return out
+    return _trainable(out, requires_grad)
+
+
+def state_from_reference(tree: dict, cfg: LMConfig, opt, *, device) -> dict:
+    """A port TrainState (``train.train_state``) holding exactly the
+    values of a reference TrainState given as host arrays: ``params``
+    (trainable, unstacked as in ``params_from_reference``), the
+    optimizer ``opt``'s moment trees under ``opt`` (each in the
+    reference's stacked layout, unstacked alike and keyed by parameter
+    name) and ``step`` (int32). Raises if a moment's shape or dtype
+    differs from what ``opt`` makes for these parameters (AdamW's
+    ``moment_dtype``)."""
+    from repro_torch.train import train_state
+    from repro_torch.train.optimizer import named
+
+    dev = resolve_device(device)
+    state = train_state.create(
+        params_from_reference(tree["params"], cfg, device=dev,
+                              requires_grad=True), opt)
+    if set(tree["opt"]) != set(state["opt"]):
+        raise ValueError(f"optimizer state {sorted(tree['opt'])}, the "
+                         f"optimizer makes {sorted(state['opt'])}")
+    for key, want in state["opt"].items():
+        got = named(_unstacked(tree["opt"][key], cfg, dev))
+        for name, t in want.items():
+            if got[name].shape != t.shape or got[name].dtype != t.dtype:
+                raise ValueError(
+                    f"opt.{key}.{name} is {tuple(got[name].shape)} "
+                    f"{got[name].dtype}, the optimizer makes "
+                    f"{tuple(t.shape)} {t.dtype}")
+        state["opt"][key] = {name: got[name] for name in want}
+    state["step"].fill_(int(tree["step"]))
+    return state
 
 
 # ==========================================================================
@@ -357,32 +421,46 @@ def _mla_attention(p: dict, cfg: LMConfig, x: torch.Tensor,
     return out.reshape(b, s, cfg.o_in_dim) @ p["wo"]
 
 
-def _ffn_block(p: dict, cfg: LMConfig, x: torch.Tensor, a: torch.Tensor
-               ) -> torch.Tensor:
-    """The residual around the attention output ``a``, then the FFN's
-    (the MoE's aux loss is dropped, as the reference's serving path
-    drops it)."""
+def _ffn_block(p: dict, cfg: LMConfig, x: torch.Tensor, a: torch.Tensor):
+    """The residual around the attention output ``a``, then the FFN's.
+    Returns (x, the MoE's load-balancing aux loss, float32; None without
+    MoE); the serving path drops the aux loss, as the reference's
+    does."""
     if cfg.post_norm:
         a = L.rms_norm(a, p["ln1_post"], cfg.norm_eps, plus_one=True)
     x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=cfg.post_norm)
     if cfg.moe is not None:
-        f, _ = moe_apply(p["moe"], h, cfg.moe)
+        f, aux = moe_apply(p["moe"], h, cfg.moe)
     else:
-        f = L.gated_mlp_apply(p["mlp"], h, cfg.act)
+        f, aux = L.gated_mlp_apply(p["mlp"], h, cfg.act), None
     if cfg.post_norm:
         f = L.rms_norm(f, p["ln2_post"], cfg.norm_eps, plus_one=True)
-    return x + f
+    return x + f, aux
 
 
 def _layer_apply(p: dict, cfg: LMConfig, x: torch.Tensor,
-                 positions: torch.Tensor, window: int) -> torch.Tensor:
+                 positions: torch.Tensor, window: int):
+    """One layer; returns (x, its aux loss or None)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norm)
     if cfg.attention == "mla":
         a = _mla_attention(p["attn"], cfg, h, positions)
     else:
         a = _gqa_attention(p["attn"], cfg, h, positions, window)
     return _ffn_block(p, cfg, x, a)
+
+
+def _block_apply(layers: list, cfg: LMConfig, x: torch.Tensor,
+                 positions: torch.Tensor, first: int):
+    """The reference's scan unit, layers ``first``.. (a (local, global)
+    pair, or one layer); returns (x, the summed aux loss or None)."""
+    aux = None
+    for j, lp in enumerate(layers):
+        x, a = _layer_apply(lp, cfg, x, positions,
+                            cfg.layer_window(first + j))
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: LMConfig
@@ -393,27 +471,42 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: LMConfig
     return x
 
 
+def _head(params: dict, cfg: LMConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embed else params["lm_head"]
+
+
 def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     """Final norm, head product in the model dtype, then float32 and
     the final softcap (in place on the fresh float32 logits)."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps,
                    plus_one=cfg.post_norm)
-    head = params["embed"].T if cfg.tie_embed else params["lm_head"]
-    logits = (x @ head).float()
+    logits = (x @ _head(params, cfg)).float()
     if cfg.final_softcap > 0.0:
         logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
     return logits
 
 
-def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig
-                   ) -> torch.Tensor:
-    """tokens [B, S] -> hidden states [B, S, D] before the final norm."""
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig, *,
+                   with_aux: bool = False):
+    """tokens [B, S] -> hidden states [B, S, D] before the final norm;
+    with ``with_aux``, (those, the MoE aux loss summed over the layers,
+    float32). With ``cfg.remat`` and grad on, each block (a (local,
+    global) pair, else a layer) runs under ``checkpoint``: the backward
+    keeps only the blocks' inputs and recomputes each block."""
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
-    for i, lp in enumerate(params["layers"]):
-        x = _layer_apply(lp, cfg, x, positions, cfg.layer_window(i))
-    return x
+    layers = params["layers"]
+    unit = 2 if cfg.layer_pattern == "local_global" else 1
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, len(layers), unit):
+        args = (layers[i:i + unit], cfg, x, positions, i)
+        x, a = checkpoint(_block_apply, *args, use_reentrant=False) \
+            if remat else _block_apply(*args)
+        if a is not None:
+            aux = aux + a
+    return (x, aux) if with_aux else x
 
 
 @torch.no_grad()
@@ -421,9 +514,37 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
             ) -> torch.Tensor:
     """tokens [B, S] -> float32 logits [B, S, padded_vocab]. The
     reference also returns the MoE load-balancing aux loss (0 without
-    MoE); the port drops it until a loss sums it (LM training, ROADMAP
-    A11.3)."""
+    MoE); here ``forward_hidden(..., with_aux=True)`` gives it and
+    ``loss_fn`` adds it."""
     return _logits(params, forward_hidden(params, tokens, cfg), cfg)
+
+
+def loss_fn(params: dict, batch: dict, cfg: LMConfig,
+            seq_chunk: int = 512) -> torch.Tensor:
+    """batch {"tokens": [B, S + 1] int32} -> the next-token
+    cross-entropy plus the MoE aux loss (float32 scalar). The head
+    (the embedding's transpose when tied) and the loss run through
+    ``layers.chunked_lm_loss`` in chunks of ``min(seq_chunk, S)``
+    tokens: the [B, S, V] float32 logits never exist."""
+    tokens = batch["tokens"]
+    x, aux = forward_hidden(params, tokens[:, :-1], cfg, with_aux=True)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps,
+                   plus_one=cfg.post_norm)
+    ce = L.chunked_lm_loss(x, _head(params, cfg), tokens[:, 1:],
+                           final_softcap=cfg.final_softcap,
+                           seq_chunk=min(seq_chunk, x.shape[1]))
+    return ce + aux
+
+
+def model_flops_per_token(cfg: LMConfig) -> float:
+    """The reference's analytic model FLOPs a token, 6 N_active (the
+    attention's own terms are counted apart): every parameter but the
+    experts a token does not reach."""
+    n = param_count(cfg)
+    if cfg.moe is not None:
+        e, k = cfg.moe.num_experts, cfg.moe.top_k
+        n -= cfg.n_layers * (e - k) * 3 * cfg.d_model * cfg.moe.d_ff_expert
+    return 6.0 * n
 
 
 # ==========================================================================
@@ -561,7 +682,8 @@ def _layer_apply_cached(p: dict, cfg: LMConfig, x: torch.Tensor,
                         ring: _RingWrites | None = None) -> torch.Tensor:
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norm)
     return _ffn_block(p, cfg, x, _attn_cached(p, cfg, h, positions, window,
-                                              lc, k_pos, prefill_len, ring))
+                                              lc, k_pos, prefill_len,
+                                              ring))[0]
 
 
 @torch.no_grad()

@@ -13,7 +13,9 @@ rounding kept step for step:
     dtype when it is None;
   * weight decay is added to ``delta`` (``delta + wd * p``) and only for
     matrices (``p.ndim >= 2``), which is not ``torch.optim.AdamW``'s
-    decoupled ``p *= 1 - lr * wd``;
+    decoupled ``p *= 1 - lr * wd``; ``AdamWConfig.decays`` names the
+    decayed parameters instead where the port's layout differs from
+    the reference's (the LM's layers, which the reference stacks);
   * the step, the schedules and the bias corrections are float32 tensor
     arithmetic on the step's device (``t = step + 1``, ``b1 ** t``).
 
@@ -111,6 +113,8 @@ class AdamWConfig:
     weight_decay: float = 0.1
     clip_norm: float = 1.0
     moment_dtype: Optional[torch.dtype] = None   # None = same as param
+    # (name, param) -> whether it decays; None = the matrices (ndim >= 2)
+    decays: Optional[Callable[[str, torch.Tensor], bool]] = None
 
 
 def adamw(cfg: AdamWConfig) -> Optimizer:
@@ -135,14 +139,16 @@ def adamw(cfg: AdamWConfig) -> Optimizer:
         bc1 = 1.0 - torch.pow(cfg.b1, t)
         bc2 = 1.0 - torch.pow(cfg.b2, t)
 
-        def upd(g, m, v, p):
+        def upd(n, g, m, v, p):
             gf = g.float()
             mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
             vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
             mh = mf / bc1
             vh = vf / bc2
             delta = mh / (torch.sqrt(vh) + cfg.eps)
-            if cfg.weight_decay > 0 and p.dim() >= 2:   # decay matrices only
+            decays = p.dim() >= 2 if cfg.decays is None else \
+                cfg.decays(n, p)
+            if cfg.weight_decay > 0 and decays:
                 delta = delta + cfg.weight_decay * p.float()
             return ((-lr * delta).to(p.dtype), mf.to(m.dtype),
                     vf.to(v.dtype))
@@ -150,7 +156,7 @@ def adamw(cfg: AdamWConfig) -> Optimizer:
         updates, new_m, new_v = {}, {}, {}
         for n, g in grads.items():
             updates[n], new_m[n], new_v[n] = upd(
-                g, state["m"][n], state["v"][n], params[n])
+                n, g, state["m"][n], state["v"][n], params[n])
         return updates, {"m": new_m, "v": new_v}, gnorm
 
     return Optimizer(init=init, update=update)

@@ -53,7 +53,8 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
     ``accum_steps`` > 1 splits the batch into microbatches on the
     leading dim; their gradients are summed in float32 (or
     ``accum_dtype``), then divided by ``accum_steps`` and cast to each
-    parameter's dtype, as the reference's scan does.
+    parameter's dtype, as the reference's scan does. The update runs
+    under the profiler range ``optimizer``.
     """
 
     def grads_of(params, batch):
@@ -87,7 +88,7 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
             loss = l_sum / accum_steps
             grads = {n: (g_sum[n] / accum_steps).to(p.dtype)
                      for n, p in params.items()}
-        with torch.no_grad():
+        with torch.no_grad(), torch.profiler.record_function("optimizer"):
             updates, state["opt"], gnorm = opt.update(
                 grads, state["opt"], params, state["step"])
             apply_updates(params, updates)

@@ -1292,3 +1292,151 @@ def test_restart_on_card_replays_bit_for_bit(dev, tmp_path):
     for n, t in named(a["params"]).items():
         assert torch.equal(t, pb[n]), n
     assert int(a["step"]) == int(b["step"]) == 6
+
+
+# --------------------------------------------------------------------------
+# LM training: the flash kernel's autograd wrapper and the train cell
+# --------------------------------------------------------------------------
+
+def _blocked_grads(q, k, v, cot, dp: int, **kw):
+    """q, k, v's gradients through ``layers.attention_blocked`` (what the
+    wrapper's backward differentiates), positions 0.. on both sides,
+    with the head dims zero-padded to ``dp`` as the route pads them."""
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    pos = torch.arange(q.shape[1], device=q.device, dtype=torch.int32)
+    pad = [torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+           for t in (q, k, v)]
+    out = L.attention_blocked(*pad, q_positions=pos, k_positions=pos,
+                              **kw)[..., :v.shape[-1]]
+    return torch.autograd.grad(out, (q, k, v), cot)
+
+
+@pytest.mark.parametrize("hq,hkv,d,dv,window,cap", [
+    (8, 4, 256, 256, 4096, 50.0),     # gemma2-2b's local layer
+    (8, 4, 256, 256, 0, 50.0),        # its global layer
+    (8, 4, 256, 256, 1024, 50.0),     # a window that cuts the keys
+    (40, 40, 96, 64, 0, 0.0)])        # minicpm3-4b's MLA, padded to 128
+def test_flash_autograd_on_card_is_k6_then_the_blocked_gradient(
+        dev, hq, hkv, d, dv, window, cap):
+    """``multi_head_attention`` with grad at a training layer's shape
+    ([1, 4096, ...] bf16): one launch of the Hopper body forward, within
+    its p-rounding gates of the plain version; the q, k, v gradients
+    bit-equal to ``torch.autograd.grad`` of ``attention_blocked`` on the
+    same inputs (MLA's through its zero padding)."""
+    g = torch.Generator(dev).manual_seed(d + window)
+    s = 4096
+    q = torch.randn((1, s, hq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, s, hkv, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, s, hkv, dv), generator=g, device=dev).bfloat16()
+    cot = torch.randn((1, s, hq, dv), generator=g, device=dev).bfloat16()
+    scale = d ** -0.5
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    pos = torch.arange(s, device=dev, dtype=torch.int32)
+    before = fa_ops.WGMMA.launches, fa_ops.FMA.launches
+    out = L.multi_head_attention(qg, kg, vg, q_positions=pos,
+                                 k_positions=pos, window=window,
+                                 attn_softcap=cap, sm_scale=scale)
+    torch.cuda.synchronize()
+    assert (fa_ops.WGMMA.launches, fa_ops.FMA.launches) == (
+        before[0] + 1, before[1])
+    got = torch.autograd.grad(out, (qg, kg, vg), cot)
+    assert (fa_ops.WGMMA.launches, fa_ops.FMA.launches) == (
+        before[0] + 1, before[1])
+    dp = 128 if d == 96 else d
+    want = _blocked_grads(q, k, v, cot, dp, window=window, attn_softcap=cap,
+                          scale=scale)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b), f"d{name}"
+    pad = [torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+           for t in (q, k, v)]
+    kw = dict(sm_scale=scale, window=window, softcap=cap)
+    ref = fa_ref.ref_flash_attention(*pad, **kw)[..., :dv]
+    err = (out.detach().float() - ref.float()).abs()
+    tol = fa_ref.p_rounding_bound(*pad, **kw)[..., :dv]
+    assert bool((err <= tol).all()), float((err / tol).max())
+    assert float(err.norm()) <= fa_ref.p_rounding_norm_bound(*pad, **kw)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _smoke_lm_state(arch_mod, dev, remat: bool):
+    """(config, the train_4k cell built for the smoke config in f32 with
+    ``remat``, a state over seeded weights with non-zero norms)."""
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(arch_mod.make_smoke_config(), remat=remat)
+    params = T.init(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+    g = torch.Generator().manual_seed(5)
+    for name, t in T.flatten(params).items():
+        if "ln" in name or name.endswith("norm"):
+            t.normal_(0.0, 0.3, generator=g)
+    params = _to(params, dev)
+    for t in T.flatten(params).values():
+        t.requires_grad_(True)
+    real = arch_mod.make_config
+    arch_mod.make_config = lambda: cfg
+    try:
+        cell = steps.build_cell(arch_mod.ARCH_ID, "train_4k", device=dev)
+    finally:
+        arch_mod.make_config = real
+    return cfg, cell, cell.init_state(params)
+
+
+@pytest.mark.parametrize("mod", (gemma2_2b, minicpm3_4b, phi3_5_moe))
+def test_lm_train_steps_on_card_fall_and_launch_k6(dev, mod):
+    """Four steps of the ``train_4k`` cell's step (smoke config, f32,
+    remat on, 4 microbatches) on one repeated batch: every loss finite,
+    the last below the first, and the kernel launched twice per layer
+    and microbatch (the forward and the checkpoint's recompute), on the
+    body ``body_of`` names (FMA: f32)."""
+    from repro_torch.data.pipeline import lm_batch
+    cfg, cell, state = _smoke_lm_state(mod, dev, remat=True)
+    batch = lm_batch(0, 0, 8, 64, cfg.vocab)
+    losses = []
+    fa_ops.KERNEL.launches = 0
+    for _ in range(4):
+        state, m = cell.step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert (fa_ops.FMA.launches, fa_ops.WGMMA.launches) == (
+        4 * 4 * 2 * cfg.n_layers, 0)
+
+
+def test_lm_train_step_on_card_matches_the_cpu(dev):
+    """One step of gemma2-2b's smoke train cell (f32): the card's route
+    (the kernel's forward) against the CPU's (its plain version), loss
+    and grad norm within 1e-5 and every parameter within 1e-5 (fp32
+    sums in other orders), and remat off gives the card's loss."""
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.train.optimizer import named
+    batch = lm_batch(0, 0, 8, 64, 128)
+    out = {}
+    for d, remat in ((dev, True), ("cpu", True), (dev, False)):
+        _, cell, state = _smoke_lm_state(gemma2_2b, torch.device(d), remat)
+        state, m = cell.step(state, batch)
+        out[(str(d), remat)] = (m, named(state["params"]))
+    card, cpu = out[(str(dev), True)], out[("cpu", True)]
+    for k in ("loss", "grad_norm"):
+        assert float(card[0][k]) == pytest.approx(float(cpu[0][k]), rel=1e-5)
+    assert float(out[(str(dev), False)][0]["loss"]) == pytest.approx(
+        float(card[0]["loss"]), rel=1e-6)
+    for n, t in cpu[1].items():
+        torch.testing.assert_close(card[1][n].detach().cpu(), t.detach(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_lm_launcher_on_card_recovers(dev, capsys):
+    """``launch.train --arch gemma2-2b --steps 30 --fail-at 15`` on the
+    card (no ``--device``): returns 0 after one restart."""
+    from repro_torch.launch import train as launch_train
+    rc = launch_train.main(["--arch", "gemma2-2b", "--steps", "30",
+                            "--fail-at", "15"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "on cuda" in out and " 1 restarts" in out, out

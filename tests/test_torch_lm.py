@@ -416,7 +416,8 @@ CONFIG_FIELDS = ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
                  "head_dim", "d_ff", "vocab", "qkv_bias", "rope_theta",
                  "norm_eps", "attn_softcap", "final_softcap", "window",
                  "layer_pattern", "attention", "post_norm", "embed_scale",
-                 "tie_embed", "act", "padded_vocab", "q_dim", "o_in_dim")
+                 "tie_embed", "act", "remat", "padded_vocab", "q_dim",
+                 "o_in_dim")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -442,16 +443,16 @@ def test_configs_field_equal(arch, make):
 
 def test_unported_lm_configs_raise():
     """What is still unported: the GNN ids (``get_arch`` and
-    ``build_cell``) and every LM's train cell. MLA and MoE configs
-    build; an MLA config without its ``MLAConfig`` is refused."""
+    ``build_cell``). Every LM's train cell builds (LM training is
+    ported); an MLA config without its ``MLAConfig`` is refused."""
     for arch in ("nequip", "gatedgcn", "graphsage-reddit", "gin-tu"):
         with pytest.raises(NotImplementedError, match="GNN"):
             tget(arch)
         with pytest.raises(NotImplementedError, match="GNN"):
             steps.build_cell(arch, "train_4k", device="cpu")
     for arch in ARCHS:
-        with pytest.raises(NotImplementedError, match="LM training"):
-            steps.build_cell(arch, "train_4k", device="cpu")
+        assert steps.build_cell(arch, "train_4k",
+                                device="cpu").kind == "train"
     with pytest.raises(ValueError, match="MLAConfig"):
         TT.LMConfig(name="x", n_layers=2, d_model=8, n_heads=2, n_kv_heads=1,
                     head_dim=4, d_ff=8, vocab=16, attention="mla")
@@ -572,9 +573,24 @@ def test_lm_entry_points_refuse_cpu_fallback(monkeypatch):
         TT.params_from_reference(tree, cfg, device=None)
 
 
-def test_lm_train_cell_raises():
-    with pytest.raises(NotImplementedError, match="LM training"):
-        steps.build_cell("gemma2-2b", "train_4k", device="cpu")
+def test_lm_train_cell_raises(monkeypatch):
+    """The LM train cell (ported) raises where it must: without CUDA
+    unless given ``device="cpu"``, over parameters that do not require
+    grad, and on a batch that does not split into its 4 microbatches."""
+    jcfg, jparams, tcfg, tparams = _models("gemma2-2b")
+    monkeypatch.setattr(tget("gemma2-2b"), "make_config", lambda: tcfg)
+    cell = steps.build_cell("gemma2-2b", "train_4k", device="cpu")
+    with pytest.raises(ValueError, match="do not require grad"):
+        cell.init_state(tparams)
+    tree = jax.tree.map(np.asarray, jparams)
+    state = cell.init_state(TT.params_from_reference(
+        tree, tcfg, device="cpu", requires_grad=True))
+    toks = np.zeros((6, 9), np.int32)
+    with pytest.raises(ValueError, match="does not split into 4"):
+        cell.step(state, {"tokens": toks})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.build_cell("gemma2-2b", "train_4k")
 
 
 # --------------------------------------------------------------------------

@@ -366,7 +366,7 @@ def test_launcher_trains_and_recovers(tmp_path, capsys):
         "step_00000010", "step_00000020", "step_00000030"]
 
 
-@pytest.mark.parametrize("arch,queue", [("gemma2-2b", "A11.3"),
+@pytest.mark.parametrize("arch,queue", [("nequip", "A11.4"),
                                         ("gin-tu", "A11.4")])
 def test_launcher_refuses_the_unported_families(arch, queue):
     with pytest.raises(NotImplementedError, match=queue):
