@@ -343,7 +343,44 @@ microbatches, remat on; ``transformer.init`` seed 0, ``lm_batch(0, i,
     blocked recompute, GEMMs, the optimizer), idle share and peak
     memory; last, ``python -m repro_torch.launch.train --arch gemma2-2b
     --steps 30 --fail-at 15`` in-process on the card returns 0 after one
-    restart.
+    restart;
+
+then the GNN family's training at full width (AdamW lr 1e-3, each
+model's ``init`` seed 0, batches from seed 26):
+
+26. a synthetic Reddit at its published size (232,965 nodes, 114,615,892
+    undirected edges: a power-law CSR of 229,231,784 entries built with
+    no sort), the ported sampler's layered minibatch over it (1,024 seeds
+    from the train split's ids, fanouts 15 / 10), mapped to local rows
+    (seeds first) and padded to ``minibatch_lg``'s static shapes (self
+    edges spread over the masked padding rows). Five cells: graphsage-
+    reddit ``minibatch_lg`` (the layered blocks), gin-tu ``molecule``,
+    gatedgcn ``full_graph_sm`` and ``minibatch_lg`` (the blocks' edge
+    union), nequip ``molecule`` (batches from ``data.pipeline``'s
+    generators at the specs' shapes). For each: loss-and-gradient
+    passes through the kernels (K4's atomic body for every message sum,
+    K5 for each of their gradients, counted and held to the count
+    reckoned from the model, ``gnn_launches``) and through the all-plain
+    route on the card, each on the batch and on ``GNN_CLOUD`` - 1 edge
+    permutations of it (the same sums in other fp32 orders); the kernel
+    runs' nearest gap to a plain run within ``GNN_GATE_FACTOR`` times
+    the widest gap between two plain runs, on the loss, the whole
+    gradient and the worst leaf (a ReLU input within rounding of 0 flips
+    a gradient term on some runs only); the kernel route without one
+    node's in-edges must break that gate. NequIP: forces finite, the energies under a random
+    rotation within the factor times what two rounding controls move
+    (positions one ulp off, edges permuted), self-loop edges masked
+    (the unmasked gap printed beside it). Then ``GNN_STEPS`` AdamW steps
+    on one repeated batch, launch counts set to 0 just before and read
+    just after, every loss finite, the last below the first; the step
+    timed (CUDA events, median of 3 after a warm-up, the batch on the
+    card; its host copy apart), device ms by op (K4, K5, GEMMs, the
+    optimizer, the rest), idle share and peak memory. At GraphSAGE's
+    layer 0, K4 on [168,960, 602] f32 rows into 180,224 (the largest
+    call) beside its plain version and ``index_add_``, and K5's
+    ``gather_rows`` at that shape beside ``index_select``. Last, ``python
+    -m repro_torch.launch.train --arch gin-tu --steps 30 --fail-at 15``
+    in-process on the card returns 0 after one restart.
 
 ``--only GROUP[,GROUP...]`` runs some phase groups (``GROUPS``; the
 CC phases 2-5 come with the groups that reuse their graphs). It prints
@@ -4186,6 +4223,602 @@ def lm_train_phases(torch, np, dev, rows: dict, card: str) -> dict:
     return {"gemma2-2b train_4k": times}
 
 
+# GNN training (phase 26): the four GNNs at full width, five cells
+GNN_STEPS = 4
+GNN_SEED = 26
+# Reddit at its published size (``configs/gnn_common.py``): the synthetic
+# graph the sampler draws ``minibatch_lg``'s blocks from
+GNN_REDDIT_NODES = 232_965
+GNN_REDDIT_EDGES = 114_615_892     # undirected; the CSR holds both ways
+GNN_REDDIT_TRAIN = 153_431         # Reddit's train split (seeds drawn here)
+# the kernel route's gaps to the all-plain route may be at most this many
+# times the widest gap between two runs of the all-plain route, each on
+# one of GNN_CLOUD orders of the edges (the first as given)
+GNN_GATE_FACTOR = 4
+GNN_CLOUD = 5
+GNN_CELLS = (("graphsage-reddit", "minibatch_lg"), ("gin-tu", "molecule"),
+             ("gatedgcn", "full_graph_sm"), ("gatedgcn", "minibatch_lg"),
+             ("nequip", "molecule"))
+
+
+def reddit_csr(np, seed: int, n: int, e: int):
+    """A power-law graph of ``n`` nodes and ``e`` undirected edges as a
+    ``CSR`` of 2e entries, built in place with no sort: degrees from a
+    Pareto(1.2) law (clipped at 100x its floor), ``indptr`` their prefix
+    sum, and each entry's neighbour drawn in proportion to degree (a
+    uniform entry of the CSR names its row: the configuration model).
+    Made in chunks of 2^24 entries."""
+    from repro_torch.graphs.format import CSR
+    rng = np.random.default_rng(seed)
+    nnz = 2 * e
+    w = np.minimum(rng.pareto(1.2, n) + 1.0, 100.0)
+    deg = np.floor(w / w.sum() * nnz).astype(np.int64)
+    deg[:nnz - int(deg.sum())] += 1
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    owner = np.repeat(np.arange(n, dtype=np.int32), deg)
+    indices = np.empty(nnz, dtype=np.int32)
+    step = 1 << 24
+    for lo in range(0, nnz, step):
+        hi = min(lo + step, nnz)
+        indices[lo:hi] = owner[rng.integers(0, nnz, hi - lo)]
+    del owner
+    return CSR(indptr=indptr, indices=indices)
+
+
+def sampled_batches(np, mb, feats, labels, d: dict, d_edge: int,
+                    seed: int) -> tuple:
+    """A sampler ``MiniBatch`` (global ids) as ``minibatch_lg``'s static
+    batches: local rows with the seeds first, then the rest of layer 1's
+    frontier, then the other input nodes, padded to ``n0`` rows; block i's
+    edges padded to ``e_i`` with self-edges on the masked padding rows,
+    one a row in turn (all on one row, a gather's backward adds them one
+    by one: 738 of a GatedGCN step's 797 device ms).
+    Returns (GraphSAGE's layered batch, the edge-union batch with
+    ``edge_attr`` for GatedGCN, the rows used)."""
+    n0, sizes = d["n0"], (d["e0"], d["e1"])
+    seeds = mb.seed_nodes
+    order = np.concatenate([
+        seeds, np.setdiff1d(mb.blocks[1].src, seeds),
+        np.setdiff1d(mb.input_nodes, np.union1d(mb.blocks[1].src, seeds))])
+    used = order.shape[0]
+    assert used == np.unique(order).shape[0] and used < n0
+    local = np.full(int(order.max()) + 1, -1, dtype=np.int64)
+    local[order] = np.arange(used)
+    x = np.zeros((n0, feats.shape[1]), np.float32)
+    x[:used] = feats[order]
+    y = np.zeros(n0, np.int32)
+    y[:used] = labels[order]
+    mask = np.zeros(n0, np.float32)
+    mask[:seeds.shape[0]] = 1.0
+    layered = {"x": x, "y": y, "node_mask": mask}
+    for i, (blk, size) in enumerate(zip(mb.blocks, sizes)):
+        n = blk.src.shape[0]
+        pad = used + np.arange(size - n) % (n0 - used)
+        for k in ("src", "dst"):
+            layered[f"{k}_{i}"] = np.concatenate(
+                [local[getattr(blk, k)], pad]).astype(np.int32)
+    union = {"x": x, "y": y, "node_mask": mask,
+             "src": np.concatenate([layered["src_0"], layered["src_1"]]),
+             "dst": np.concatenate([layered["dst_0"], layered["dst_1"]])}
+    union["edge_attr"] = np.random.default_rng(seed).standard_normal(
+        (union["src"].shape[0], d_edge), dtype=np.float32)
+    return layered, union, used
+
+
+def gnn_host_batch(np, arch: str, shape: str, cfg, d: dict, seed: int,
+                   sampled: dict) -> dict:
+    """The cell's host batch at its spec's shapes, from the port's
+    pipeline generators (or the sampler's blocks for ``minibatch_lg``)."""
+    from repro_torch.data.pipeline import graph_node_batch, \
+        molecule_energy_batch
+    if shape == "minibatch_lg":
+        return sampled["layered" if arch == "graphsage-reddit" else "union"]
+    if shape == "molecule":
+        b = molecule_energy_batch(seed, 0, d["graphs"], d["nodes_per"],
+                                  d["edges_per"],
+                                  getattr(cfg, "n_species", d["d_feat"]))
+        if arch == "nequip":
+            return b
+        rng = np.random.default_rng((seed, 1))
+        return {"x": np.eye(d["d_feat"], dtype=np.float32)[b["species"]],
+                "src": b["src"], "dst": b["dst"],
+                "graph_ids": b["graph_ids"],
+                "y": rng.integers(0, d["n_classes"], d["graphs"]).astype(
+                    np.int32),
+                "node_mask": np.ones(d["v"], np.float32)}
+    b = graph_node_batch(seed, 0, d["v"], d["e_sym"] // 2, d["d_feat"],
+                         d["n_classes"])
+    b["edge_attr"] = np.random.default_rng((seed, 1)).standard_normal(
+        (d["e_sym"], cfg.d_edge_in), dtype=np.float32)
+    return b
+
+
+def gnn_launches(arch: str, cfg, batch: dict) -> tuple:
+    """(K4, K5) launches one train step makes, reckoned from the model.
+    Every message sum is one K4 launch a forward; ``remat`` runs a
+    layer's forward again in the backward (NequIP's layer and its edge
+    chunks each: twice more). K5 is the backward of each sum whose input
+    needs a gradient: not a first layer's sum over the input features
+    (GraphSAGE, GIN), and not NequIP's last-layer sums into l > 0 (the
+    readout takes only scalars)."""
+    L = cfg.n_layers
+    if arch == "graphsage-reddit":             # mean: sum and degree
+        return 2 * L, L - 1
+    if arch == "gin-tu":
+        g = int(cfg.graph_level)              # the graph pooling
+        return L + g, L - 1 + g
+    if arch == "gatedgcn":                    # eta and eta * Vh
+        return (4 if cfg.remat else 2) * L, 2 * L
+    from repro_torch.models.gnn.nequip import coupling_paths
+    paths = coupling_paths(cfg.l_max)
+    e = batch["src"].shape[0]
+    chunks = -(-e // min(cfg.edge_chunk, e))
+    scalar = sum(1 for p in paths if p[2] == 0)
+    return ((3 if cfg.remat else 1) * L * chunks * len(paths) + 1,
+            ((L - 1) * len(paths) + scalar) * chunks + 1)
+
+
+@contextlib.contextmanager
+def plain_message_passing(torch):
+    """K4 and K5 replaced by their plain versions (on the card, torch
+    ops) where ``kernels.autograd`` calls them."""
+    from repro_torch.kernels.embedding_bag import ops as eb_ops, \
+        ref as eb_ref
+    from repro_torch.kernels.segment_reduce import ops as sr_ops, \
+        ref as sr_ref
+    real = sr_ops.segment_reduce, eb_ops.embedding_bag
+    sr_ops.segment_reduce = lambda data, ids, n, *, op="sum", \
+        indices_are_sorted=False: sr_ref.ref_segment_reduce(data, ids, n, op)
+    eb_ops.embedding_bag = lambda table, idx, *, combine="sum": \
+        eb_ref.ref_embedding_bag(table, idx, combine)
+    try:
+        yield
+    finally:
+        sr_ops.segment_reduce, eb_ops.embedding_bag = real
+
+
+def permuted_edges(np, torch, batch: dict, seed: int) -> dict:
+    """The batch with every edge list (and ``edge_attr``, ``edge_mask``)
+    permuted: the same sums in another order."""
+    out = dict(batch)
+    for suffix in ("", "_0", "_1"):
+        if f"src{suffix}" not in batch:
+            continue
+        e = batch[f"src{suffix}"].shape[0]
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+            e)).to(batch[f"src{suffix}"].device)
+        keys = (f"src{suffix}", f"dst{suffix}") + (
+            ("edge_attr", "edge_mask") if not suffix else ())
+        for k in keys:
+            if k in batch:
+                out[k] = batch[k][perm]
+    return out
+
+
+def dropped_in_edges(torch, batch: dict) -> tuple:
+    """The batch without the edges into one node (of the nodes the loss
+    reads, the first with the largest in-degree in the last edge list):
+    the negative control."""
+    suffix = "_1" if "src_1" in batch else ""
+    dst = batch[f"dst{suffix}"]
+    counts = torch.bincount(dst.long(), minlength=batch.get(
+        "node_mask", dst).shape[0])
+    if "node_mask" in batch:
+        counts = counts * (batch["node_mask"] > 0)
+    node = int(counts.argmax())
+    keep = dst != node
+    out = dict(batch)
+    out[f"src{suffix}"] = batch[f"src{suffix}"][keep]
+    out[f"dst{suffix}"] = dst[keep]
+    if "edge_mask" in batch and not suffix:
+        out["edge_mask"] = batch["edge_mask"][keep]
+    if "edge_attr" in batch and not suffix:
+        out["edge_attr"] = batch["edge_attr"][keep]
+    return out, node, int((~keep).sum())
+
+
+def gnn_phases(torch, np, dev, rows: dict, card: str) -> dict:
+    """Phase 26: the GNN family's train cells at full width. Adds a
+    ``gnn`` entry to the ``segment_reduce_atomic`` and ``embedding_bag``
+    rows; returns each cell's numbers."""
+    import gc
+    import io
+
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import SHAPE_DEFS
+    from repro_torch.graphs.sampler import sample_minibatch
+    from repro_torch.kernels import autograd
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.segment_reduce import ops as sr_ops, \
+        ref as sr_ref
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.gnn import model_of
+    from repro_torch.models.gnn import nequip
+    from repro_torch.train.optimizer import global_norm, named
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 26a. Reddit at full size, the sampler, minibatch_lg's batches -----
+    d_lg = SHAPE_DEFS["minibatch_lg"]
+    t0 = time.perf_counter()
+    csr = reddit_csr(np, GNN_SEED, GNN_REDDIT_NODES, GNN_REDDIT_EDGES)
+    csr_s = time.perf_counter() - t0
+    rng = np.random.default_rng(GNN_SEED)
+    feats = rng.standard_normal((GNN_REDDIT_NODES, d_lg["d_feat"]),
+                                dtype=np.float32)
+    labels = rng.integers(0, d_lg["n_classes"], GNN_REDDIT_NODES).astype(
+        np.int32)
+    seeds = rng.choice(GNN_REDDIT_TRAIN, d_lg["seeds"], replace=False)
+    t0 = time.perf_counter()
+    mb = sample_minibatch(csr, seeds, d_lg["fanouts"], rng)
+    sample_s = time.perf_counter() - t0
+    layered, union, used = sampled_batches(
+        np, mb, feats, labels, d_lg, get_arch("gatedgcn").D_EDGE, GNN_SEED)
+    deg = np.diff(csr.indptr)
+    graph = dict(nodes=GNN_REDDIT_NODES, csr_entries=int(csr.indptr[-1]),
+                 degree_max=int(deg.max()), degree_median=float(
+                     np.median(deg)), build_s=csr_s, sample_s=sample_s,
+                 rows_used=used, frontier_1=int(
+                     np.union1d(mb.blocks[1].src, seeds).shape[0]),
+                 blocks=[int(b.src.shape[0]) for b in mb.blocks])
+    del csr, feats, labels, deg
+    print(f"phase 26: reddit-scale graph ({card}): {graph}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    sampled = {"layered": layered, "union": union}
+
+    def loss_and_grads(M, params, batch, cfg):
+        loss = M.loss_fn(params, batch, cfg)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, list(named(params).values()))
+
+    out, k4_entry, k5_entry = {}, None, None
+    for arch, shape in GNN_CELLS:
+        t_cell = time.perf_counter()
+        name = f"{arch} {shape}"
+        mod, M = get_arch(arch), model_of(arch)
+        cfg = mod.make_config(shape)
+        d = SHAPE_DEFS[shape]
+        cell = steps.build_cell(arch, shape, device=dev)
+        host = gnn_host_batch(np, arch, shape, cfg, d, GNN_SEED, sampled)
+        spec = mod.input_specs(shape)["batch"]
+        check({k: (tuple(v.shape), str(v.dtype)) for k, v in host.items()}
+              == {k: (s, str(dt).removeprefix("torch.")) for k, (s, dt) in
+                  spec.items()}, f"{name}: the batch is not the spec")
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        h2d_ms = time_ms(torch, lambda: {k: torch.from_numpy(v).to(dev)
+                                         for k, v in host.items()}, reps=2)
+        params = M.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                        device=dev, requires_grad=True)
+        leaves = named(params)
+        names = list(leaves)
+        per_step = gnn_launches(arch, cfg, host)
+
+        # parity: the kernel route against the all-plain route. Each runs
+        # on the batch and on GNN_CLOUD - 1 edge permutations of it (the
+        # same sums in other fp32 orders). A ReLU unit whose input lies
+        # within rounding of 0 flips its gradient term on some of those
+        # runs and not on others (a discrete step: 3.1e-4 of GraphSAGE's
+        # gradient at minibatch_lg on an H100), so the kernel runs are held to the
+        # nearest plain run, and the gate is the factor times the widest
+        # gap between two plain runs
+        variants = [batch] + [permuted_edges(np, torch, batch, GNN_SEED + i)
+                              for i in range(1, GNN_CLOUD)]
+        eb_ops.KERNEL.launches = sr_ops.KERNEL.launches = 0
+        with plain_message_passing(torch):
+            plain = [loss_and_grads(M, params, b, cfg) for b in variants]
+        torch.cuda.synchronize()
+        check(eb_ops.KERNEL.launches == sr_ops.KERNEL.launches == 0,
+              f"{name}: the all-plain route launched a kernel")
+        kernel = [loss_and_grads(M, params, b, cfg) for b in variants]
+        torch.cuda.synchronize()
+        pass_launches = (sr_ops.ATOMIC.launches, eb_ops.KERNEL.launches)
+        want = (GNN_CLOUD * per_step[0], GNN_CLOUD * per_step[1])
+        check(pass_launches == want and sr_ops.SORTED.launches == 0,
+              f"{name}: {GNN_CLOUD} passes launched K4 / K5 {pass_launches},"
+              f" the model's count is {want}")
+        dropped, node, n_drop = dropped_in_edges(torch, batch)
+        fault = loss_and_grads(M, params, dropped, cfg)
+        del dropped, variants
+        stats = ("loss_gap", "grad_rel_diff", "worst_leaf_rel_diff")
+
+        def gaps(run, ref) -> dict:
+            diff = [float((a - b).norm()) for a, b in zip(run[1], ref[1])]
+            rel = {n: x / float(b.norm()) for n, x, b in
+                   zip(names, diff, ref[1]) if float(b.norm())}
+            worst = max(rel, key=rel.get)
+            return dict(loss_gap=abs(run[0] - ref[0]),
+                        grad_rel_diff=float(np.sqrt(sum(x * x for x in diff)))
+                        / float(global_norm(dict(zip(names, ref[1])))),
+                        worst_leaf=worst, worst_leaf_rel_diff=rel[worst])
+
+        def nearest(run) -> dict:
+            each = [gaps(run, p) for p in plain]
+            return {x: min(g[x] for g in each) for x in stats}
+        within = [gaps(a, b) for i, a in enumerate(plain)
+                  for b in plain[i + 1:]]
+        gate = {x: GNN_GATE_FACTOR * max(g[x] for g in within) for x in stats}
+        # a scalar can read no gap by chance: the loss's gate is at least
+        # the factor times one fp32 ulp of the loss
+        gate["loss_gap"] = max(gate["loss_gap"], GNN_GATE_FACTOR * float(
+            np.spacing(np.float32(abs(plain[0][0])))))
+        near = [nearest(k) for k in kernel]
+        read = {"kernel": {x: min(r[x] for r in near) for x in stats},
+                "kernel_first_vs_plain_first": gaps(kernel[0], plain[0]),
+                "plain_widest": {x: max(g[x] for g in within)
+                                 for x in stats},
+                "kernel_dropped_in_edges": nearest(fault)}
+        check(all(np.isfinite(k[0]) for k in kernel)
+              and all(bool(torch.isfinite(g).all()) for k in kernel
+                      for g in k[1]),
+              f"{name}: a kernel-route loss or gradient is not finite")
+        over = [x for x in stats if read["kernel"][x] > gate[x]]
+        check(not over, f"{name}: the kernel route is beyond "
+              f"{GNN_GATE_FACTOR} times the plain route's widest gap in "
+              f"{over}: {read} against {gate}")
+        caught = [x for x in stats
+                  if read["kernel_dropped_in_edges"][x] > gate[x]]
+        check(bool(caught), f"{name}: the gate does not catch the kernel "
+              f"route without node {node}'s {n_drop} in-edges: "
+              f"{read['kernel_dropped_in_edges']} against {gate}")
+        parity = dict(loss_plain=plain[0][0], loss_kernel=kernel[0][0],
+                      grad_norm_plain=float(global_norm(dict(
+                          zip(names, plain[0][1])))),
+                      runs=GNN_CLOUD, gate=gate, dropped_node=node,
+                      dropped_edges=n_drop, dropped_caught_by=caught, **read)
+        for k, r in read.items():
+            print(f"{name} parity {k} ({card}): {r}; over the gate "
+                  f"{ {x: r[x] / gate[x] if gate[x] else None for x in stats} }")
+        del plain, kernel, fault
+
+        if arch == "nequip":
+            # forces; the energy under a random rotation, held to controls
+            # that move only f32 rounding (every coordinate one ulp off,
+            # the edges permuted). A self-loop edge (i, i) has r = 1e-9 > 0
+            # and Y_2(0) = (0, 0, -c, 0, 0), a message that does not rotate
+            # (the reference's model alike): the check masks those edges
+            # through ``edge_mask``, and the unmasked gap is read beside it
+            forces = nequip.forces(params, batch, cfg)
+            masked = {**batch, "edge_mask": (batch["src"] != batch["dst"])
+                      .to(torch.float32)}
+            q, _ = np.linalg.qr(np.random.default_rng(GNN_SEED)
+                                .standard_normal((3, 3)))
+            if np.linalg.det(q) < 0:
+                q[:, 0] *= -1
+            rot = torch.from_numpy((host["positions"].astype(np.float64)
+                                    @ q.T).astype(np.float32)).to(dev)
+
+            def jittered(seed):
+                sign = np.where(np.random.default_rng(seed).random(
+                    host["positions"].shape) < 0.5, -1.0, 1.0)
+                return masked["positions"] + torch.from_numpy((sign * np.spacing(
+                    np.abs(host["positions"]))).astype(np.float32)).to(dev)
+            with torch.no_grad():
+                e0 = nequip.forward(params, masked, cfg)
+                e_rot = nequip.forward(params, {**masked, "positions": rot},
+                                       cfg)
+                e_ctrl = [nequip.forward(params, permuted_edges(
+                    np, torch, {**masked, "positions": jittered(s)}, s), cfg)
+                    for s in (GNN_SEED + 3, GNN_SEED + 4)]
+                e_all = nequip.forward(params, batch, cfg)
+                e_all_rot = nequip.forward(params, {**batch, "positions": rot},
+                                           cfg)
+            torch.cuda.synchronize()
+            rot_gap = float((e_rot - e0).abs().max())
+            # the largest energy's ulp floors it: a gap of a few ulps of the
+            # value is rounding whatever the controls read
+            rot_gate = GNN_GATE_FACTOR * max(
+                [float((e - e0).abs().max()) for e in e_ctrl]
+                + [float(np.spacing(np.float32(float(e0.abs().max()))))])
+            check(bool(torch.isfinite(forces).all()),
+                  "nequip: the forces are not finite")
+            check(rot_gap <= rot_gate, f"nequip: a rotation moves the "
+                  f"energies by {rot_gap}, the gate (rounding controls) is "
+                  f"{rot_gate}")
+            parity.update(
+                forces_finite=True, forces_abs_max=float(forces.abs().max()),
+                rotation_energy_gap=rot_gap, rotation_gate=rot_gate,
+                self_loops=int((batch["src"] == batch["dst"]).sum()),
+                rotation_energy_gap_with_self_loops=float(
+                    (e_all_rot - e_all).abs().max()),
+                energy_abs_max=float(e0.abs().max()))
+            print(f"nequip forces and rotation ({card}): |F| max "
+                  f"{parity['forces_abs_max']:.6f}; a rotation moves the "
+                  f"energies by {rot_gap:.3e} (gate {rot_gate:.3e}) with "
+                  f"the {parity['self_loops']} self-loop edges masked, by "
+                  f"{parity['rotation_energy_gap_with_self_loops']:.3e} "
+                  "with them")
+            del forces, e0, e_rot, e_ctrl, e_all, e_all_rot, masked
+
+        # -- GNN_STEPS AdamW steps on one repeated batch --------------------
+        state = cell.init_state(params)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        sr_ops.KERNEL.launches = eb_ops.KERNEL.launches = 0
+        metrics, step_s = [], []
+        for _ in range(GNN_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(cell.step(state, batch)[1])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = {"k4_atomic": sr_ops.ATOMIC.launches,
+                    "k4_sorted": sr_ops.SORTED.launches,
+                    "k5": eb_ops.KERNEL.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(m["loss"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"{name}: a loss or grad norm is not finite: {losses} {norms}")
+        check(losses[-1] < losses[0], f"{name}: the loss did not fall over "
+                                      f"{GNN_STEPS} steps: {losses}")
+        want = {"k4_atomic": GNN_STEPS * per_step[0], "k4_sorted": 0,
+                "k5": GNN_STEPS * per_step[1]}
+        check(launches == want, f"{name}: {GNN_STEPS} steps launched "
+              f"{launches}, the model's count is {want}")
+        check(int(state["step"]) == GNN_STEPS, f"{name}: the state's step")
+
+        # -- time, the device's split, memory -------------------------------
+        step_ms = time_ms(torch, lambda: cell.step(state, batch))
+        prof = profiled(torch, lambda: cell.step(state, batch))
+        ev = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU
+              and e.self_device_time_total > 0 and e.key != "optimizer"]
+        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+
+        def kernels_ms(*marks):
+            return sum(e.self_device_time_total for e in ev
+                       if any(m in e.key for m in marks)) / 1e3
+        by_op = {"k4": kernels_ms("::scatter_kernel", "::fill_kernel",
+                                  "::cast_kernel"),
+                 "k5": kernels_ms("embedding_bag_kernel"),
+                 "gemms": kernels_ms("gemm", "Gemm", "xmma", "cutlass",
+                                     "nvjet", "sm90_")}
+        by_op["optimizer"] = range_device_ms(prof, "optimizer")
+        by_op["rest"] = dev_ms - sum(by_op.values())
+        del prof
+        times = dict(
+            step_ms=step_ms, step_s_each=step_s, h2d_ms=h2d_ms,
+            device_ms_per_step=dev_ms,
+            idle_share=1 - dev_ms / step_ms if ev else None,
+            device_ms_by_op=by_op, top_device_ops=top_device_ops(ev, 1, n=8),
+            k4_share=by_op["k4"] / dev_ms if ev else None,
+            launches_per_step={"k4": per_step[0], "k5": per_step[1]},
+            launches=launches,
+            losses=losses, grad_norms=norms, peak_gib=peak,
+            params=sum(p.numel() for p in leaves.values()),
+            batch={k: list(v.shape) for k, v in host.items()},
+            parity=parity, card=card)
+        if shape == "minibatch_lg":
+            times["graph"] = graph
+        print(f"{name} ({card}): losses {losses}, step {step_ms:.3f} ms "
+              f"(CUDA events, median of 3 after a warm-up, batch on the "
+              f"card; its copy {h2d_ms:.3f} ms), device {dev_ms:.3f} ms, "
+              f"idle share {times['idle_share']}, by op {by_op}, peak "
+              f"{peak:.2f} GiB, launches a step {times['launches_per_step']}; "
+              f"top {times['top_device_ops']}")
+
+        # -- K4 and K5 at the largest call: GraphSAGE's layer 0 -------------
+        if arch == "graphsage-reddit":
+            with torch.no_grad():
+                rows_in = batch["x"][batch["src_0"]].contiguous()
+                ids = batch["dst_0"]
+                n_seg = batch["x"].shape[0]
+                got = sr_ops.segment_reduce(rows_in, ids, n_seg)
+                want_k4 = sr_ref.ref_segment_reduce(rows_in, ids, n_seg)
+                ids64 = ids.long()
+
+                def index_add():
+                    return torch.zeros((n_seg, rows_in.shape[1]),
+                                       dtype=torch.float32,
+                                       device=dev).index_add_(0, ids64,
+                                                              rows_in)
+                lib = index_add()
+                torch.cuda.synchronize()
+                err = float(((got - want_k4).abs() / (1 + want_k4.abs()))
+                            .max())
+                check(err <= 1e-5, f"K4 at the GNN shape is {err} from "
+                                   "plain (gate 1e-5 (1 + |ref|))")
+                n_e, dim = rows_in.shape
+                k4_bound, k4_by = bound(4 * n_e * dim + 4 * n_e
+                                        + 4 * n_seg * dim, n_e * dim)
+                k4_entry = dict(
+                    shape=f"GraphSAGE layer 0 at minibatch_lg: [{n_e}, {dim}]"
+                          f" f32 rows into {n_seg} by unsorted dst_0",
+                    body="segment_reduce", max_abs_err=float(
+                        (got - want_k4).abs().max()), rel_err=err,
+                    library_max_abs_err=float((lib - want_k4).abs().max()),
+                    ms=time_ms(torch, lambda: sr_ops.segment_reduce(
+                        rows_in, ids, n_seg)),
+                    device_ms=device_ms(torch, lambda: sr_ops.segment_reduce(
+                        rows_in, ids, n_seg)),
+                    plain_ms=time_ms(torch, lambda: sr_ref.ref_segment_reduce(
+                        rows_in, ids, n_seg)),
+                    library_ms=time_ms(torch, index_add),
+                    library_device_ms=device_ms(torch, index_add),
+                    library="index_add_ of the f32 rows on f32 zeros",
+                    bound_ms=k4_bound, bound_by=k4_by)
+                del got, want_k4, lib
+                # K5: the backward's gather_rows at the same shape
+                g_out = torch.randn((n_seg, dim), device=dev,
+                                    generator=torch.Generator(dev)
+                                    .manual_seed(GNN_SEED))
+                got = autograd.gather_rows(g_out, ids, n_seg)
+                want_k5 = torch.index_select(g_out, 0, ids64)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want_k5), "K5's gather_rows at the "
+                      "GNN shape differs from index_select")
+                k5_bound, k5_by = bound(4 * n_e * dim + 4 * n_e
+                                        + 4 * n_e * dim, 0)
+                idx2 = ids[:, None].contiguous()
+                k5_entry = dict(
+                    shape=f"gather_rows at minibatch_lg: [{n_seg}, {dim}] f32"
+                          f" gradient rows by {n_e} ids (bags of 1)",
+                    max_abs_err=0.0,
+                    ms=time_ms(torch, lambda: eb_ops.embedding_bag(
+                        g_out, idx2)),
+                    device_ms=device_ms(torch, lambda: eb_ops.embedding_bag(
+                        g_out, idx2)),
+                    route_ms=time_ms(torch, lambda: autograd.gather_rows(
+                        g_out, ids, n_seg)),
+                    plain_ms=time_ms(torch, lambda: g_out[ids64]),
+                    library_ms=time_ms(torch, lambda: torch.index_select(
+                        g_out, 0, ids64)),
+                    library_device_ms=device_ms(torch, lambda: torch.
+                                                index_select(g_out, 0, ids64)),
+                    library="torch.index_select (bit-equal)",
+                    bound_ms=k5_bound, bound_by=k5_by)
+                del got, want_k5, g_out, rows_in, idx2
+            print(f"K4 at the GNN shape ({card}): {k4_entry}")
+            print(f"K5 at the GNN shape ({card}): {k5_entry}")
+        times["cell_s"] = time.perf_counter() - t_cell
+        out[name] = times
+        del state, params, leaves, batch, cell, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    del sampled, layered, union
+
+    # -- 26c. the launcher, in-process on the card -------------------------
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_train.main(["--arch", "gin-tu", "--steps", "30",
+                                "--fail-at", "15"])
+    text = buf.getvalue().strip()
+    print(text)
+    check(rc == 0 and " 1 restarts" in text and "on cuda" in text
+          and "45 steps" in text, f"the GNN launcher returned {rc}: {text!r}")
+
+    launches = {"k4": sum(c["launches"]["k4_atomic"] for c in out.values()),
+                "k5": sum(c["launches"]["k5"] for c in out.values())}
+    per_cell = {n: dict(c["launches_per_step"], k4_device_ms=c[
+        "device_ms_by_op"]["k4"], k5_device_ms=c["device_ms_by_op"]["k5"],
+        step_ms=c["step_ms"]) for n, c in out.items()}
+    k4_row = dict(k4_entry, launches=launches["k4"], per_cell=per_cell)
+    k5_row = dict(k5_entry, launches=launches["k5"], per_cell=per_cell)
+    rows.setdefault("segment_reduce_atomic", dict(
+        name="segment_reduce_atomic", route="cuda",
+        source="src/repro_torch/kernels/csrc/segment_reduce.cu",
+        replaces="src/repro/kernels/segment_reduce/segment_reduce.py:62",
+        **{k: v for k, v in k4_row.items() if k != "per_cell"}))["gnn"] = \
+        k4_row
+    rows.setdefault("embedding_bag", dict(
+        name="embedding_bag", route="cuda",
+        source="src/repro_torch/kernels/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag/embedding_bag.py:44",
+        **{k: v for k, v in k5_row.items() if k != "per_cell"}))["gnn"] = \
+        k5_row
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 26: {phase_s:.1f} s; K4 launches {launches['k4']}, K5 "
+          f"{launches['k5']} over the cells' {GNN_STEPS}-step runs")
+    out["phase_s"] = phase_s
+    return {"gnn": out}
+
+
 def cc_phases(torch, np, dev, rows: dict, card: str) -> tuple:
     """Phases 2-5: the CC kernels against their plain versions, the main
     path at full scale, the parity constants, the solve times. Adds the
@@ -4555,7 +5188,8 @@ KERNEL_ROWS = ("cc_fused", "cc_fused_batched", "hook", "hook_snapshot",
 # phase groups, in run order; ``--only`` runs some of them (the CC phases
 # 2-5 come along with any group that reuses their graphs)
 GROUPS = ("cc", "recsys", "lm", "front_door", "dynamic", "batched",
-          "service", "distributed", "fleet", "mla_moe", "train", "lm_train")
+          "service", "distributed", "fleet", "mla_moe", "train", "lm_train",
+          "gnn")
 NEEDS_CC = ("front_door", "dynamic", "distributed")
 
 
@@ -4646,6 +5280,9 @@ def main(argv=None) -> int:
         e2e.update(train_phases(torch, np, dev, rows, card))
     if "lm_train" in only:
         e2e.update(lm_train_phases(torch, np, dev, rows, card))
+    # 26. the GNN family's training
+    if "gnn" in only:
+        e2e.update(gnn_phases(torch, np, dev, rows, card))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

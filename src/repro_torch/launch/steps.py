@@ -1,6 +1,7 @@
 """Per-(arch × shape) step builders, the port of ``repro.launch.steps``
-for the recsys family (training and serving), the LM serving steps and
-the paper's multi-shard CC on the Table I graphs.
+for the recsys family (training and serving), the LM train and serving
+steps, the GNN train steps and the paper's multi-shard CC on the Table
+I graphs.
 
 ``build_cell(arch_id, shape, device=...)`` returns a ``Cell``: the step
 callable and the ``(shape, dtype)`` specs of its arguments. Building a
@@ -18,7 +19,10 @@ moves the inputs to the cell's device and runs there:
                     accumulator, ``ACCUM_STEPS`` microbatches (4 unless
                     the arch sets it), weight decay on every layer's
                     leaf (``transformer.decays``), as the reference's
-                    ``_build_lm``;
+                    ``_build_lm``. GNN: lr 1e-3 on the config of the
+                    shape (``make_config(shape)``), the default decay
+                    of every leaf with ``ndim >= 2`` (the layers are
+                    stacked as in the reference), as its ``_build_gnn``;
   * ``serve``     — ``step(model, batch)`` -> logits [B];
   * ``retrieval`` — ``step(model, batch, candidate_ids)`` -> scores [N];
   * ``prefill``   — ``step(params, tokens, cache)`` -> (logits [B, S, V],
@@ -52,6 +56,7 @@ from repro_torch.core.segmentation import plan_segmentation
 from repro_torch.graphs.device import resolve_device
 from repro_torch.models import recsys
 from repro_torch.models import transformer as T
+from repro_torch.models.gnn import model_of
 from repro_torch.train import train_state
 from repro_torch.train.optimizer import AdamWConfig, adamw
 
@@ -67,6 +72,10 @@ class Cell:
 
 
 def _on(x, device: torch.device) -> torch.Tensor:
+    """A host array, or a tensor, on ``device`` (a tensor already there
+    is not copied)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
     return torch.as_tensor(np.asarray(x)).to(device)
 
 
@@ -147,6 +156,27 @@ def _build_lm(arch_id: str, shape: str, device: torch.device) -> Cell:
                       specs["cache"]))
 
 
+def _build_gnn(arch_id: str, shape: str, device: torch.device) -> Cell:
+    """A GNN train cell: NequIP too takes this plain step (the
+    reference's ``shard_map`` step over a mesh has no one-device
+    analogue)."""
+    mod = get_arch(arch_id)
+    M = model_of(arch_id)
+    cfg = mod.make_config(shape)
+    specs = mod.input_specs(shape)
+    params = {n: (s, cfg.dtype) for n, s in M.param_shapes(cfg).items()}
+    opt = adamw(AdamWConfig(lr=1e-3))
+    raw = train_state.make_train_step(
+        lambda model, batch: M.loss_fn(model, batch, cfg), opt)
+
+    def step(state, batch):
+        return raw(state, _batch_on(batch, device))
+    state = {"params": params, "opt": {"m": params, "v": params},
+             "step": ((), torch.int32)}
+    return Cell(arch_id, shape, "train", step, args=(state, specs["batch"]),
+                init_state=lambda model: train_state.create(model, opt))
+
+
 def _build_cc(shape: str, mesh) -> Cell:
     """The paper's multi-shard CC on a Table I graph (full size). The
     engine is built on a ``meta`` edge tensor: nothing is allocated
@@ -193,7 +223,9 @@ def build_cell(arch_id: str, shape: str, *, device=None, mesh=None) -> Cell:
         raise ValueError(f"{arch_id} runs on one device; mesh= is for the "
                          "cc-adaptive cell")
     device = resolve_device(device)
-    # get_arch raises for the ids that are not ported (GNN)
-    if get_arch(arch_id).FAMILY == "lm":
+    family = get_arch(arch_id).FAMILY
+    if family == "lm":
         return _build_lm(arch_id, shape, device)
+    if family == "gnn":
+        return _build_gnn(arch_id, shape, device)
     return _build_recsys(arch_id, shape, device)

@@ -7,11 +7,14 @@ checkpoints, restart on failure and the step-time watchdog. It runs on
 CUDA unless ``--device`` names another device (``--device cpu``), and
 raises without CUDA otherwise.
 
-The recsys and LM families train; the GNN family raises
-``NotImplementedError`` (ROADMAP A11.4).
+The recsys, LM and GNN families train: an LM on 32-token sequences,
+DCN-v2 on recsys batches, NequIP on 8 molecules of 8 atoms and 12
+bonds, the other GNNs on a 64-node, 128-edge graph (GatedGCN with edge
+features, GIN with 8 graph labels), as the reference's smoke streams.
 
 Examples:
   python -m repro_torch.launch.train --arch gemma2-2b --steps 100
+  python -m repro_torch.launch.train --arch gin-tu --steps 50 --fail-at 20
   python -m repro_torch.launch.train --arch dcn-v2 --steps 200
   python -m repro_torch.launch.train --arch dcn-v2 --steps 30 \\
       --fail-at 15 --ckpt build/ck_dcn
@@ -34,22 +37,56 @@ from repro_torch.train.optimizer import AdamWConfig, adamw, cosine_schedule
 
 def _model_api(arch_id: str):
     """The model module of ``arch_id``'s family."""
-    if get_arch(arch_id).FAMILY == "lm":   # raises for the GNN ids (A11.4)
+    family = get_arch(arch_id).FAMILY
+    if family == "lm":
         from repro_torch.models import transformer as M
         return M
+    if family == "gnn":
+        from repro_torch.models.gnn import model_of
+        return model_of(arch_id)
     from repro_torch.models import recsys as M
     return M
 
 
-def _smoke_stream(family: str, cfg, seed: int, batch: int):
-    """(start_step -> iterator) of the family's batches, smoke-sized:
-    LM sequences of 32 tokens, or recsys batches."""
+def _gnn_batch(arch_id: str, cfg, seed: int, step: int) -> dict:
+    """Batch ``step`` of a GNN's smoke stream (the reference's)."""
+    if arch_id == "nequip":
+        return dp.molecule_energy_batch(seed, step, num_graphs=8,
+                                        nodes_per=8, edges_per=12,
+                                        n_species=cfg.n_species)
+    b = dp.graph_node_batch(seed, step, num_nodes=64, num_edges=128,
+                            d_feat=cfg.d_in, n_classes=cfg.n_classes)
+    if arch_id == "gatedgcn":
+        rng = np.random.default_rng((seed, step, 1))
+        b["edge_attr"] = rng.standard_normal(
+            (b["src"].shape[0], cfg.d_edge_in)).astype(np.float32)
+    if arch_id == "gin-tu" and cfg.graph_level:
+        b["graph_ids"] = (np.arange(64) % cfg.num_graphs).astype(np.int32)
+        rng = np.random.default_rng((seed, step, 2))
+        b["y"] = rng.integers(0, cfg.n_classes,
+                              cfg.num_graphs).astype(np.int32)
+    return b
+
+
+def _smoke_stream(arch_id: str, cfg, seed: int, batch: int):
+    """(start_step -> iterator) of the arch's batches, smoke-sized."""
+    family = get_arch(arch_id).FAMILY
+
     def make(start):
         if family == "lm":
             return dp.make_stream(dp.lm_batches, seed, batch, 32, cfg.vocab,
                                   start_step=start)
-        return dp.make_stream(dp.recsys_batches, seed, batch, cfg.n_dense,
-                              cfg.table_sizes, start_step=start)
+        if family == "recsys":
+            return dp.make_stream(dp.recsys_batches, seed, batch,
+                                  cfg.n_dense, cfg.table_sizes,
+                                  start_step=start)
+
+        def gen():
+            step = start
+            while True:
+                yield _gnn_batch(arch_id, cfg, seed, step)
+                step += 1
+        return dp.Prefetcher(gen())
     return make
 
 
@@ -79,7 +116,8 @@ def main(argv=None) -> int:
     if family == "recsys":
         loss, opt = M.loss_fn, adamw(AdamWConfig(lr=lr))
     else:
-        opt = adamw(AdamWConfig(lr=lr, decays=M.decays))
+        # the GNNs keep the reference's stacked layout: the default rule
+        opt = adamw(AdamWConfig(lr=lr, decays=getattr(M, "decays", None)))
 
         def loss(params, batch):
             return M.loss_fn(params, batch, cfg)
@@ -104,7 +142,7 @@ def main(argv=None) -> int:
         report = run_with_restarts(
             init_state_fn=init_state,
             step_fn=step_fn,
-            stream_fn=_smoke_stream(family, cfg, args.seed, args.batch),
+            stream_fn=_smoke_stream(args.arch, cfg, args.seed, args.batch),
             total_steps=args.steps,
             ckpt_dir=args.ckpt or tmp,
             ckpt_every=args.ckpt_every,

@@ -731,7 +731,10 @@ def test_segment_reduce_sorted_body_matches_plain(dev, n, d, segs, offset,
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 def test_segment_reduce_sorted_body_is_one_kernel(dev, dtype):
     """torch.profiler sees exactly one CUDA kernel (and no memset or
-    copy) per call of the sorted body, at the embedding bag's shape."""
+    copy) per call of the sorted body, at the embedding bag's shape, and
+    the body's launch counter moves by one. The profiler's device trace
+    can come back empty: such a profile is taken again, up to three
+    times, and an empty one never passes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     data = _table(60000, 16, dtype, 7, dev)
@@ -740,12 +743,19 @@ def test_segment_reduce_sorted_body_is_one_kernel(dev, dtype):
                                        7))).values.to(torch.int32)
     sr_ops.segment_reduce(data, ids, 13312, indices_are_sorted=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sr_ops.segment_reduce(data, ids, 13312, indices_are_sorted=True)
-        torch.cuda.synchronize()
-    ops = [(e.key, e.count) for e in prof.key_averages()
-           if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    for _ in range(3):
+        before = (sr_ops.SORTED.launches, sr_ops.ATOMIC.launches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sr_ops.segment_reduce(data, ids, 13312, indices_are_sorted=True)
+            torch.cuda.synchronize()
+        assert (sr_ops.SORTED.launches, sr_ops.ATOMIC.launches) == (
+            before[0] + 1, before[1])
+        ops = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU
+               and e.self_device_time_total > 0]
+        if ops:
+            break
     assert len(ops) == 1 and ops[0][1] == 1 and "sorted_kernel" in ops[0][0], ops
 
 
@@ -1440,3 +1450,101 @@ def test_lm_launcher_on_card_recovers(dev, capsys):
                             "--fail-at", "15"])
     out = capsys.readouterr().out
     assert rc == 0 and "on cuda" in out and " 1 restarts" in out, out
+
+
+# --------------------------------------------------------------------------
+# GNN training: message passing on K4, its gradient on K5
+# --------------------------------------------------------------------------
+
+# (K4, K5) launches of one train pass (forward and backward) of each
+# smoke config on the launcher's smoke batch: GraphSAGE 2 layers x (sum,
+# degree), one backward gather (layer 0's input needs none); GIN 2
+# layers + the graph pooling, the first layer's sum without a backward;
+# GatedGCN 3 layers x 2 sums, run again by remat, each with a backward;
+# NequIP 2 layers x 11 paths + the energy, twice more under the layer's
+# and the chunk's remat, and no backward for the last layer's 8 sums
+# into l > 0
+GNN_LAUNCHES = {"graphsage-reddit": (4, 1), "gin-tu": (3, 2),
+                "gatedgcn": (12, 6), "nequip": (67, 15)}
+
+
+def _plain_message_passing(monkeypatch):
+    monkeypatch.setattr(sr_ops, "segment_reduce", lambda d, i, n, *, op="sum",
+                        indices_are_sorted=False:
+                        sr_ref.ref_segment_reduce(d, i, n, op))
+    monkeypatch.setattr(eb_ops, "embedding_bag", lambda t, i, *,
+                        combine="sum": eb_ref.ref_embedding_bag(t, i, combine))
+
+
+@pytest.mark.parametrize("arch", tuple(GNN_LAUNCHES))
+def test_gnn_train_step_on_card_matches_the_plain_route(dev, arch,
+                                                        monkeypatch):
+    """Each GNN's smoke config (f32) on the launcher's batch and on three
+    edge permutations of it (the same sums in other fp32 orders, which is
+    all K4's atomics change): passes through the kernels (K4's atomic
+    body for every message sum, K5 for each of their gradients, counted)
+    and through the all-plain route on the card. The kernel runs' nearest
+    gap to a plain run, on the loss, the whole gradient and the worst
+    leaf, within 4x the widest gap between two plain runs (the loss's
+    gate at least 4 fp32 ulps of it): a ReLU input within rounding of 0
+    flips a gradient term on some runs only. Then one step of the train
+    cell: finite, launching one pass's counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import _gnn_batch
+    from repro_torch.models.gnn import model_of
+    from repro_torch.train.optimizer import named
+    mod, M = get_arch(arch), model_of(arch)
+    cfg = mod.make_smoke_config()
+    host = _gnn_batch(arch, cfg, 0, 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    params = M.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                    device=dev, requires_grad=True)
+    leaves = named(params)
+
+    def run(b):
+        loss = M.loss_fn(params, b, cfg)
+        return float(loss), torch.autograd.grad(loss, list(leaves.values()))
+
+    variants = [batch]
+    for seed in (1, 2, 3):
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+            host["src"].shape[0])).to(dev)
+        variants.append({**batch, **{k: batch[k][perm] for k in (
+            "src", "dst", "edge_attr") if k in batch}})
+    sr_ops.KERNEL.launches = eb_ops.KERNEL.launches = 0
+    kernel = [run(b) for b in variants]
+    torch.cuda.synchronize()
+    assert (sr_ops.ATOMIC.launches, eb_ops.KERNEL.launches) == tuple(
+        4 * n for n in GNN_LAUNCHES[arch]) and sr_ops.SORTED.launches == 0
+    with monkeypatch.context() as m:
+        _plain_message_passing(m)
+        plain = [run(b) for b in variants]
+    torch.cuda.synchronize()
+
+    def gaps(got, ref):
+        diff = [float((a - b).norm()) for a, b in zip(got[1], ref[1])]
+        whole = float(np.sqrt(sum(x * x for x in diff))) / float(
+            np.sqrt(sum(float(b.norm()) ** 2 for b in ref[1])))
+        worst = max(x / float(b.norm()) for x, b in zip(diff, ref[1])
+                    if float(b.norm()))
+        return abs(got[0] - ref[0]), whole, worst
+    within = [gaps(a, b) for i, a in enumerate(plain) for b in plain[i + 1:]]
+    gate = [4 * max(c) for c in zip(*within)]
+    gate[0] = max(gate[0], 4 * float(np.spacing(np.float32(abs(plain[0][0])))))
+    nearest = [min(c) for c in zip(*(gaps(k, p) for k in kernel
+                                     for p in plain))]
+    assert all(g <= t for g, t in zip(nearest, gate)), (nearest, gate)
+    real = mod.make_config
+    mod.make_config = lambda shape=None: cfg
+    try:
+        cell = steps.build_cell(arch, "molecule", device=dev)
+    finally:
+        mod.make_config = real
+    state = cell.init_state(params)
+    sr_ops.KERNEL.launches = eb_ops.KERNEL.launches = 0
+    state, metrics = cell.step(state, host)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"]))
+    assert (sr_ops.ATOMIC.launches, eb_ops.KERNEL.launches) == \
+        GNN_LAUNCHES[arch]

@@ -236,8 +236,9 @@ def test_cell_steps_run_the_model_on_host_batches():
 
 
 def test_unported_cells_raise():
-    """The cells still unported: every GNN id. The recsys train cell
-    and the MLA and MoE LMs' train and serving cells build."""
+    """No cell is left unported: every GNN id builds a train cell for
+    each of its shapes, and refuses a recsys shape. The recsys train
+    cell and the MLA and MoE LMs' train and serving cells build."""
     assert steps.build_cell("dcn-v2", "train_batch",
                             device="cpu").kind == "train"
     for arch in ("minicpm3-4b", "grok-1-314b"):
@@ -246,8 +247,12 @@ def test_unported_cells_raise():
         assert steps.build_cell(arch, "decode_32k",
                                 device="cpu").kind == "decode"
     for arch in ("nequip", "gatedgcn", "graphsage-reddit", "gin-tu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11.4"):
-            steps.build_cell(arch, "train_4k", device="cpu")
+        for shape in ("full_graph_sm", "minibatch_lg", "ogb_products",
+                      "molecule"):
+            assert steps.build_cell(arch, shape,
+                                    device="cpu").kind == "train"
+        with pytest.raises(KeyError, match="train_batch"):
+            steps.build_cell(arch, "train_batch", device="cpu")
     # the multi-shard CC cell is ported: it builds, allocating nothing
     cell = steps.build_cell("cc-adaptive", "usa-osm", device="cpu")
     assert (cell.kind, cell.args) == ("cc", (((58_000_000, 2),

@@ -114,13 +114,11 @@ def test_registry_ids_and_unported_archs():
     assert tconfigs.get_arch("dcn-v2") is tdcn
     assert (tdcn.ARCH_ID, tdcn.FAMILY, tdcn.SHAPES, tdcn.SHAPE_DEFS) == (
         jdcn.ARCH_ID, jdcn.FAMILY, jdcn.SHAPES, jdcn.SHAPE_DEFS)
-    ported = ("dcn-v2", "gemma2-2b", "qwen2.5-32b", "minicpm3-4b",
-              "grok-1-314b", "phi3.5-moe-42b-a6.6b")
+    # every id is ported: each resolves to its module, in the reference's
+    # family
     for arch in tconfigs.ARCH_IDS:
-        if arch in ported:
-            assert tconfigs.get_arch(arch).ARCH_ID == arch
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            tconfigs.get_arch(arch)
+        mod = tconfigs.get_arch(arch)
+        assert (mod.ARCH_ID, mod.FAMILY) == (arch,
+                                             jconfigs.get_arch(arch).FAMILY)
     with pytest.raises(KeyError):
         tconfigs.get_arch("no-such-arch")
