@@ -402,12 +402,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
+# the H100 bound model of PERF.md §3, the port's roofline module's
+from repro_torch.roofline.analysis import (  # noqa: E402
+    BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, SECTOR, bound,
+    bound_ms)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    causal_pairs)
+
 DEVICE = "cuda"
 SCALE = 1.0                        # of the full-scale stand-ins
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device-memory rate
-FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
-BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor-core peak
-SECTOR = 32                        # bytes a random 4-byte read costs in DRAM
 K4_BATCH = 20                      # back-to-back calls per timing of K4
 FULL_SCALE = ("usa-osm", "kron-logn21")
 # table1_scaled(name, scale=0.002, seed=1): (|V|, |E|, s), the reference's
@@ -458,22 +462,8 @@ def time_ms(torch, fn, reps: int = 3, batch: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float) -> float:
-    return nbytes / HBM_BYTES_PER_S * 1e3
-
-
 def max_abs_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
-
-
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    """The least time (ms) for ``nbytes`` of device memory traffic and
-    ``nops`` fp32 operations outside the tensor cores, and which of the
-    two bounds it."""
-    by_bytes = bound_ms(nbytes)
-    by_ops = nops / FP32_OPS_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
 
 
 def float_err(got, want) -> float:
@@ -967,17 +957,10 @@ LM_TAIL = 256                      # rows of the long shape held to plain
 LM_EPS_ULPS = 8                    # teacher-forced check, bf16 ulps
 
 
-def attention_pairs(s: int, window: int) -> int:
-    """Unmasked (q, k) pairs of causal attention over positions 0..s-1."""
-    if window <= 0 or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def attention_flops(q, window: int) -> int:
     """4 d flops (QK and PV) per unmasked pair and query head."""
     b, s, hq, d = q.shape
-    return 4 * d * hq * b * attention_pairs(s, window)
+    return 4 * d * hq * b * causal_pairs(s, s, window)
 
 
 def attention_bound(q, k, window: int) -> tuple[float, str]:
@@ -3105,7 +3088,7 @@ def k6_at_model_shape(torch, np, dev, cfg, params, card: str) -> dict:
     row["library_ratio"] = ms / row["library_ms"]
     if mla:
         pos = torch.arange(q.shape[1], dtype=torch.int32, device=dev)
-        pairs = q.shape[0] * attention_pairs(q.shape[1], 0)
+        pairs = q.shape[0] * causal_pairs(q.shape[1], q.shape[1], 0)
         by_bytes = bound_ms(2 * q.shape[0] * q.shape[1] * (hq + hkv)
                             * (d + dv))
         by_ops = 2 * (d + dv) * hq * pairs / BF16_OPS_PER_S * 1e3
@@ -4819,6 +4802,264 @@ def gnn_phases(torch, np, dev, rows: dict, card: str) -> dict:
     return {"gnn": out}
 
 
+# phase 27: the dry-run, the cost model, the transfer pass and elastic
+# rescale on the card
+ANALYSIS_BUCKETS = ("small", "scale")
+ANALYSIS_ENTRIES = ("service.tick.insert", "service.tick.delete",
+                    "service.tick.delete_forest", "queries.same_component",
+                    "queries.component_size", "queries.count_components",
+                    "queries.component_histogram",
+                    "queries.spanning_forest_stats")
+
+
+def remat_band(rec: dict) -> tuple:
+    """(lo, hi) of an LM train cell's ``useful_flop_ratio``, derived from
+    remat: a token costs forward 2N + backward 4N + a recompute of at
+    most 2N (``torch.utils.checkpoint`` stops recomputing a block once
+    the tensors its backward needs are back, so 0 to 2N), where the
+    model counts 6N. N is the parameters a token's matmuls reach: less
+    an untied input embedding (a lookup), plus the expert rows capacity
+    pads (E x capacity rows a chunk where top-k x chunk are used).
+    Attention is counted apart: K6's launches and the backward's
+    ``flash_attention_backward`` range, as counted."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import SHAPE_DEFS
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import model_flops_per_token
+
+    mod = get_arch(rec["arch"])
+    cfg = mod.make_config()
+    d = SHAPE_DEFS[rec["shape"]]
+    tokens = d["batch"] * d["seq"]
+    n = model_flops_per_token(cfg) / 6
+    if not cfg.tie_embed:
+        n -= cfg.padded_vocab * cfg.d_model
+    if cfg.moe is not None:
+        micro = d["batch"] // getattr(mod, "ACCUM_STEPS", 4) * d["seq"]
+        chunk = min(cfg.moe.dispatch_chunk, micro)
+        n += cfg.n_layers * 3 * cfg.d_model * cfg.moe.d_ff_expert * (
+            cfg.moe.num_experts * moe.capacity(cfg.moe, chunk) / chunk
+            - cfg.moe.top_k)
+    attn = sum(k["flops"] for k in rec["kernels"].values()) + \
+        rec["ranges"].get("flash_attention_backward", {}).get("flops", 0.0)
+    return (rec["model_flops"] / (8 * tokens * n + attn),
+            rec["model_flops"] / (6 * tokens * n + attn))
+
+
+def launch_analysis_phases(torch, np, dev, rows: dict, card: str) -> dict:
+    """Phase 27: the dry-run of every cell, the cost model against the
+    card, the transfer pass against the card's sync count, and an
+    elastic rescale of a TrainState between the card and the CPU.
+    Returns each part's numbers."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.analysis import transfers
+    from repro_torch.analysis.entries import all_entries
+    from repro_torch.analysis.graph_utils import trace
+    from repro_torch.analysis.runner import BUCKETS
+    from repro_torch.configs import all_cells, cc_graphs, dcn_v2, get_arch
+    from repro_torch.configs.gnn_common import SHAPE_DEFS as GNN_SHAPES
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.segment_reduce import ops as sr_ops
+    from repro_torch.launch import dryrun, elastic, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import recsys
+    from repro_torch.models.gnn import model_of
+    from repro_torch.roofline.analysis import cost
+    from repro_torch.train import checkpoint, train_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw, named
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+
+    # -- 27a. the dry-run of every cell on meta ----------------------------
+    jobs = max(1, min(8, (os.cpu_count() or 2) - 1))
+    path = ROOT / "build" / "dryrun_phase27.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--arch", "all", "--jobs", str(jobs), "--out",
+                      str(path)])
+    dry_s = time.perf_counter() - t0
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    want = [(a, s) for a, s, skip in all_cells() if skip is None] + \
+        [("cc-adaptive", s) for s in cc_graphs.SHAPES]
+    check(rc == 0 and [(r["arch"], r["shape"]) for r in recs] == want,
+          f"the dry-run returned {rc} with {len(recs)} of {len(want)} "
+          "records")
+    lm = {}
+    for r in recs:
+        if r["kind"] != "train" or get_arch(r["arch"]).FAMILY != "lm":
+            continue
+        lo, hi = remat_band(r)
+        ratio = r["roofline"]["useful_flop_ratio"]
+        counted = r["roofline"]["hlo_gflops_per_chip"] * 1e9
+        lm[r["arch"]] = {"counted_flops": counted,
+                         "model_flops": r["model_flops"],
+                         "useful_flop_ratio": ratio, "band": [lo, hi],
+                         "meta_run_s": r["run_s"]}
+        print(f"dry-run {r['arch']} train_4k: counted {counted:.4e} FLOPs, "
+              f"model {r['model_flops']:.4e}, useful_flop_ratio {ratio} "
+              f"(remat band {lo:.4f}-{hi:.4f}), meta run {r['run_s']} s "
+              f"[{card}]")
+        check(lo - 1e-4 <= ratio <= hi + 1e-4,
+              f"{r['arch']}: useful_flop_ratio {ratio} outside the remat "
+              f"band {lo:.4f}-{hi:.4f}")
+    check(len(lm) == 5, f"{len(lm)} LM train cells dry-ran, not 5")
+    print(f"27a: {len(recs)} cells dry-ran on meta in {dry_s:.1f} s "
+          f"({jobs} processes); skipped "
+          f"{[(a, s) for a, s, skip in all_cells() if skip]}")
+    out["dryrun"] = {"cells": len(recs), "seconds": dry_s, "jobs": jobs,
+                     "lm_train": lm}
+
+    # -- 27b. the cost model's bound against the card ----------------------
+    bounds = {}
+    cfg = dcn_v2.make_config()
+    model = recsys.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                        device=dev)
+    host = recsys_batch(1, 0, dcn_v2.SHAPE_DEFS["serve_bulk"]["batch"],
+                        cfg.n_dense, cfg.table_sizes)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    cell = steps.build_cell("dcn-v2", "serve_bulk", device=dev)
+    eb_ops.KERNEL.launches = 0
+    _, c = cost(cell.step, model, batch)
+    torch.cuda.synchronize()
+    check(eb_ops.KERNEL.launches == c.kernels["embedding_bag"]["launches"]
+          == 1, f"serve_bulk under the cost model: {eb_ops.KERNEL.launches} "
+          f"K5 launches, {c.kernels} reported")
+    bounds["dcn-v2/serve_bulk"] = (c, time_ms(torch, lambda: cell.step(
+        model, batch)))
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    arch, shape = "graphsage-reddit", "minibatch_lg"
+    gcfg = get_arch(arch).make_config(shape)
+    d = GNN_SHAPES[shape]
+    rng = np.random.default_rng(GNN_SEED)
+    n0, n1, seeds = d["n0"], d["n1"], d["seeds"]
+
+    def ids(n, hi):
+        return torch.from_numpy(rng.integers(0, hi, n).astype(np.int32)
+                                ).to(dev)
+    gbatch = {"x": torch.from_numpy(rng.standard_normal(
+                  (n0, d["d_feat"]), dtype=np.float32)).to(dev),
+              "y": ids(n0, d["n_classes"]),
+              "node_mask": (torch.arange(n0, device=dev) < seeds).float(),
+              "src_0": ids(d["e0"], n0), "dst_0": ids(d["e0"], n1),
+              "src_1": ids(d["e1"], n1), "dst_1": ids(d["e1"], seeds)}
+    gcell = steps.build_cell(arch, shape, device=dev)
+    state = gcell.init_state(model_of(arch).init(
+        gcfg, generator=torch.Generator(dev).manual_seed(0), device=dev,
+        requires_grad=True))
+    for k in (eb_ops.KERNEL, sr_ops.KERNEL):
+        k.launches = 0
+    _, c = cost(gcell.step, state, gbatch)
+    torch.cuda.synchronize()
+    check(c.kernels["segment_reduce"]["launches"] == sr_ops.ATOMIC.launches
+          > 0 and c.kernels["embedding_bag"]["launches"]
+          == eb_ops.KERNEL.launches > 0,
+          f"{arch} under the cost model: {c.kernels} reported, K4 "
+          f"{sr_ops.ATOMIC.launches}, K5 {eb_ops.KERNEL.launches} counted")
+    bounds[f"{arch}/{shape}"] = (c, time_ms(torch, lambda: gcell.step(
+        state, gbatch)))
+    del state, gbatch
+    out["cost_model"] = {}
+    for name, (c, ms) in bounds.items():
+        b = c.bound_ms()
+        share = b / ms
+        out["cost_model"][name] = {
+            "bound_ms": b, "measured_ms": ms, "share": share,
+            "gbytes": c.bytes / 1e9, "gflops": dict(
+                (k, v / 1e9) for k, v in c.flops.items()),
+            "ops": c.ops, "kernels": c.kernels}
+        print(f"27b {name}: bound {b:.3f} ms (bytes {c.bytes / 1e9:.3f} GB, "
+              f"FLOPs {c.flops}, {c.ops} ops) vs measured {ms:.3f} ms: "
+              f"{share:.1%} of it [{card}]")
+        check(b <= ms, f"{name}: the bound {b:.3f} ms exceeds the measured "
+              f"{ms:.3f} ms")
+
+    # -- 27c. the transfer pass against the card's synchronizing calls -----
+    entries = {e.name: e for e in all_entries()}
+    out["transfers"] = {}
+    for name in ANALYSIS_ENTRIES:
+        for bname in ANALYSIS_BUCKETS:
+            syncs = []
+            t = trace(entries[name], BUCKETS[bname], device=dev,
+                      runner=lambda run: syncs.append(
+                          count_syncs(torch, run)[1]))
+            check(t.failure is None and len(syncs) == 1,
+                  f"{name} at {bname} failed on the card: {t.failure}")
+            points = transfers.sync_points(t)
+            counted = sum(points.values())
+            # each read's _local_scalar_dense counted once, not twice
+            distinct = counted - sum(op.name == "_local_scalar_dense"
+                                     for op in t.record.ops)
+            out["transfers"][f"{name}@{bname}"] = dict(
+                card_syncs=syncs[0], counted=counted, distinct=distinct,
+                **points, ops=len(t.record.ops))
+            print(f"27c {name} at {bname} {BUCKETS[bname]}: card syncs "
+                  f"{syncs[0]}, the pass's {counted} ({points}; "
+                  f"{distinct} distinct), {len(t.record.ops)} ops [{card}]")
+            check(syncs[0] <= counted,
+                  f"{name} at {bname}: the card made {syncs[0]} "
+                  f"synchronizing calls, the pass counted {points}: it "
+                  "missed a kind of sync")
+
+    # -- 27d. elastic: a TrainState card -> CPU -> card, bit-equal ---------
+    ecfg = get_arch("gin-tu").make_config("molecule")
+    M = model_of("gin-tu")
+    opt = adamw(AdamWConfig())
+    card_state = train_state.create(M.init(
+        ecfg, generator=torch.Generator(dev).manual_seed(0), device=dev,
+        requires_grad=True), opt)
+    g = torch.Generator(dev).manual_seed(27)
+    with torch.no_grad():
+        for t in [*named(card_state["params"]).values(),
+                  *card_state["opt"]["m"].values(),
+                  *card_state["opt"]["v"].values()]:
+            t.copy_(torch.randn(t.shape, generator=g, device=dev))
+        card_state["step"].fill_(27)
+
+    def leaves(s):
+        return {"step": s["step"], **{f"params.{n}": p.detach() for n, p
+                                      in named(s["params"]).items()},
+                **{f"{k}.{n}": t for k in ("m", "v")
+                   for n, t in s["opt"][k].items()}}
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    try:
+        checkpoint.save(str(tmp / "card"), card_state, 27)
+        on_cpu = elastic.rescale(str(tmp / "card"), card_state,
+                                 make_mesh(1, device="cpu"))
+        checkpoint.save(str(tmp / "cpu"), on_cpu, 27)
+        back = elastic.rescale(str(tmp / "cpu"), on_cpu,
+                               make_mesh(1, device=dev))
+    finally:
+        shutil.rmtree(tmp)
+    want = leaves(card_state)
+    for label, s, where in (("cpu", on_cpu, "cpu"), ("card", back,
+                                                      dev.type)):
+        got = leaves(s)
+        check(got.keys() == want.keys() and all(
+            got[n].device.type == where and got[n].dtype == want[n].dtype
+            and torch.equal(got[n].cpu(), want[n].cpu()) for n in want),
+            f"elastic rescale onto the {label} is not bit-equal")
+    n_bytes = sum(t.numel() * t.element_size() for t in want.values())
+    print(f"27d gin-tu TrainState ({len(want)} leaves, {n_bytes} bytes): "
+          "card -> CPU -> card, bit-equal both ways")
+    out["elastic"] = {"leaves": len(want), "bytes": n_bytes}
+
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 27: {phase_s:.1f} s (dry-run {dry_s:.1f} s) [{card}]")
+    out["phase_s"] = phase_s
+    return {"launch_analysis": out}
+
+
 def cc_phases(torch, np, dev, rows: dict, card: str) -> tuple:
     """Phases 2-5: the CC kernels against their plain versions, the main
     path at full scale, the parity constants, the solve times. Adds the
@@ -5189,7 +5430,7 @@ KERNEL_ROWS = ("cc_fused", "cc_fused_batched", "hook", "hook_snapshot",
 # 2-5 come along with any group that reuses their graphs)
 GROUPS = ("cc", "recsys", "lm", "front_door", "dynamic", "batched",
           "service", "distributed", "fleet", "mla_moe", "train", "lm_train",
-          "gnn")
+          "gnn", "launch_analysis")
 NEEDS_CC = ("front_door", "dynamic", "distributed")
 
 
@@ -5219,7 +5460,6 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from the "
               "repository root", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(SRC))
     import numpy as np
 
     from repro_torch import kernels
@@ -5283,6 +5523,9 @@ def main(argv=None) -> int:
     # 26. the GNN family's training
     if "gnn" in only:
         e2e.update(gnn_phases(torch, np, dev, rows, card))
+    # 27. the dry-run, the cost model, the transfer pass, elastic rescale
+    if "launch_analysis" in only:
+        e2e.update(launch_analysis_phases(torch, np, dev, rows, card))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

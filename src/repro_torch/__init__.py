@@ -39,6 +39,8 @@ from repro_torch.api import (BACKENDS, Backend, Capabilities,
                              ExecutionPlan, Solver, available_backends,
                              capability_matrix, get_backend,
                              register_backend, solve)
+# the package's public engine entries, the names the reference exports
+# analysis: ok[kernel-ast]
 from repro_torch.core.cc import (CCResult, solve_hostloop, solve_pallas,
                                  solve_static)
 from repro_torch.core.rounds import WorkCounters

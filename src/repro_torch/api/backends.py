@@ -22,12 +22,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.api.plan import ExecutionPlan
-from repro_torch.api.registry import Capabilities, register_backend
+from repro_torch.api.registry import (Capabilities, TraceEntry, VarInfo,
+                                      register_backend, register_trace_spec)
 from repro_torch.core import batch as batch_mod, cc as cc_mod
 from repro_torch.core import distributed as dist_mod
 from repro_torch.core.cc import CCResult
 from repro_torch.core.incremental import DynamicCC, IncrementalCC
 from repro_torch.core.rounds import WorkCounters
+from repro_torch.graphs.device import DeviceGraph
 
 __all__ = []            # nothing public; importing registers everything
 
@@ -217,3 +219,234 @@ def _distributed(plan: ExecutionPlan) -> CCResult:
     labels = fn(graph)
     plan.artifacts["rounds"] = fn.last_rounds
     return CCResult(labels, WorkCounters.zeros(labels.device))
+
+
+# ---------------------------------------------------------------------------
+# Trace specs (consumed by repro_torch.analysis)
+# ---------------------------------------------------------------------------
+# Each spec builds a backend's program over ``meta`` example arguments at
+# a shape bucket: ``repro_torch.analysis`` runs it on drawn inputs and
+# holds the record to the contracts (transfer-freedom on tick paths,
+# int32 range safety at scale-tier shapes, pow2 bucketing, the padding
+# mask). A true count is a Python int, as the port's ``DeviceGraph``
+# holds it. Engine state an entry needs before the program it names (the
+# log a delete tombstones, the forest an absorb extends) is built under
+# ``graph_utils.untraced``, from the entry's own drawn edges.
+
+def _meta(shape, dtype=torch.int32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _true(rows: int) -> int:
+    """The true count of a pow2 bucket three quarters full."""
+    return rows - rows // 4
+
+
+def _ids(v: int, padded: bool = False):
+    return VarInfo(range=(0, v - 1), padded=padded)
+
+
+def _count(n: int):
+    return VarInfo(range=(0, n), mask=True)
+
+
+def _graph_fn_build(v: int, e: int, run):
+    """The build of every entry of shape fn(edges, true_edges)."""
+    def fn(edges, true_edges):
+        return run(DeviceGraph.from_edges(edges, v, true_edges=true_edges))
+    return fn, (_meta((e, 2)), _true(e)), [_ids(v, True), _count(e)]
+
+
+def _static_solve_entry(method: str):
+
+    def build(v, e, _method=method):
+        return _graph_fn_build(
+            v, e, lambda g: cc_mod.solve_static(g, method=_method))
+    return TraceEntry(name=f"backend.{method}", build=build, backend=method)
+
+
+@register_trace_spec("static")
+def _static_specs():
+    return [_static_solve_entry(m)
+            for m in cc_mod.METHODS + (cc_mod.FUSED_METHOD,)]
+
+
+@register_trace_spec("sampled")
+def _sampled_specs():
+    from repro_torch.core import rounds, sampled as sampled_mod
+    from repro_torch.core.segmentation import adaptive_num_segments
+
+    def build_sample(v, e):
+        def fn(edges, true_edges):
+            return sampled_mod._sample_phase(
+                edges, true_edges, v, k=sampled_mod.SAMPLE_K,
+                sample_rounds=sampled_mod.SAMPLE_ROUNDS, lift_steps=2)
+        return (fn, (_meta((e, 2)), _true(e)), [_ids(v, True), _count(e)])
+
+    def residue_build(v, e, fused):
+        # parents and work start fresh; pi arrives as the sampling
+        # phase's labels
+        def fn(edges, true_edges, pi):
+            dev = edges.device
+            return sampled_mod._residue_scan(
+                edges, true_edges, pi, rounds.empty_forest(v, dev),
+                WorkCounters.zeros(dev), num_nodes=v,
+                num_segments=adaptive_num_segments(e, v), lift_steps=2,
+                fused=fused)
+        return (fn, (_meta((e, 2)), _true(e), _meta((v,))),
+                [_ids(v, True), _count(e), _ids(v)])
+
+    return [TraceEntry(name="backend.sampled.sample_phase",
+                       build=build_sample, backend="sampled"),
+            TraceEntry(name="backend.sampled.residue",
+                       build=lambda v, e: residue_build(v, e, False),
+                       backend="sampled"),
+            TraceEntry(name="backend.sampled_fused.residue",
+                       build=lambda v, e: residue_build(v, e, True),
+                       backend="sampled_fused")]
+
+
+@register_trace_spec("pallas")
+def _pallas_specs():
+
+    def build(v, e):
+        return _graph_fn_build(v, e, lambda g: cc_mod.solve_pallas(g))
+    return [TraceEntry(name="backend.pallas", build=build,
+                       backend="pallas")]
+
+
+@register_trace_spec("hostloop")
+def _hostloop_specs():
+    # the hostloop backend is CONTRACTED to sync (device_loop=False);
+    # its per-step device programs are each their own entry without the
+    # transfer_free contract
+    from repro_torch.core.rounds import compress, hook_edges, jump_once
+
+    def build_hook(v, e):
+        def fn(pi, edges):
+            return hook_edges(pi, edges, lift_steps=0)
+        return (fn, (_meta((v,)), _meta((e, 2))), [_ids(v), _ids(v, True)])
+
+    def build_jump(v, e):
+        return jump_once, (_meta((v,)),), [_ids(v)]
+
+    def build_compress(v, e):
+        def fn(pi):
+            return compress(pi, WorkCounters.zeros(pi.device))
+        return fn, (_meta((v,)),), [_ids(v)]
+
+    bucketed = frozenset({"bucketed"})
+    return [TraceEntry("backend.hostloop.hook", build_hook, bucketed,
+                       backend="hostloop"),
+            TraceEntry("backend.hostloop.jump", build_jump, bucketed,
+                       backend="hostloop"),
+            TraceEntry("backend.hostloop.compress", build_compress,
+                       bucketed, backend="hostloop")]
+
+
+@register_trace_spec("batched")
+def _batched_specs():
+
+    def build(v, e, batch=4):
+        per = max(e // batch, 8)
+
+        def fn(edges, true_edges, true_nodes):
+            return batch_mod.solve_bucket(edges, true_edges, true_nodes, v)
+        return (fn, (_meta((batch, per, 2)), _meta((batch,)),
+                     _meta((batch,))),
+                [_ids(v, True), _count(per), _count(v)])
+    return [TraceEntry(name="backend.batched", build=build,
+                       backend="batched")]
+
+
+def _absorb_build(v: int, e: int, engine):
+    """fn(pi, new_edges, true_count): absorb one batch into an engine
+    holding the labels ``pi`` (adopted under ``untraced``)."""
+    from repro_torch.analysis.graph_utils import untraced
+
+    def fn(pi, new_edges, true_count):
+        with untraced():
+            state = engine(v, device=pi.device)
+            state.adopt(pi)
+        return state.insert_graph(
+            DeviceGraph.from_edges(new_edges, v, true_edges=true_count))
+    return (fn, (_meta((v,)), _meta((e, 2)), _true(e)),
+            [_ids(v), _ids(v, True), _count(e)])
+
+
+@register_trace_spec("incremental")
+def _incremental_specs():
+    return [TraceEntry(name="backend.incremental.absorb",
+                       build=lambda v, e: _absorb_build(v, e, IncrementalCC),
+                       backend="incremental")]
+
+
+def _delete_build(v: int, e: int, route: str):
+    """fn(edges, d_true): a delete tick over a log holding ``edges``
+    (inserted under ``untraced``) of its first ``d`` rows, ``d_true`` of
+    them true: the scoped recompute on torch ops (``jnp``) or the fused
+    kernel, or the tree-aware route (``forest``)."""
+    from repro_torch.analysis.graph_utils import untraced
+    d = max(e // 4, 8)
+
+    def fn(edges, d_true):
+        with untraced():
+            state = DynamicCC(v, scan_method="jnp" if route == "forest"
+                              else route, device=edges.device)
+            state.insert_graph(DeviceGraph.from_edges(edges, v))
+            dels = DeviceGraph.from_edges(edges[:d], v, true_edges=d_true)
+        if route == "forest":
+            return state.delete_graph_forest(dels)
+        return state.delete_graph(dels)
+    return fn, (_meta((e, 2)), _true(d)), [_ids(v), _count(d)]
+
+
+def _absorb_forest_build(v: int, e: int):
+    """fn(edges, new_edges, true_count): an absorb that extends the
+    maintained forest of a log holding ``edges`` (under ``untraced``)."""
+    from repro_torch.analysis.graph_utils import untraced
+
+    def fn(edges, new_edges, true_count):
+        with untraced():
+            state = DynamicCC(v, device=edges.device)
+            state.insert_graph(DeviceGraph.from_edges(edges, v))
+        return state.insert_graph(
+            DeviceGraph.from_edges(new_edges, v, true_edges=true_count))
+    return (fn, (_meta((e, 2)), _meta((e, 2)), _true(e)),
+            [_ids(v), _ids(v, True), _count(e)])
+
+
+@register_trace_spec("dynamic")
+def _dynamic_specs():
+    return [TraceEntry(name="backend.dynamic.absorb",
+                       build=lambda v, e: _absorb_build(v, e, DynamicCC),
+                       backend="dynamic"),
+            TraceEntry(name="backend.dynamic.absorb_forest",
+                       build=_absorb_forest_build, backend="dynamic"),
+            TraceEntry(name="backend.dynamic.delete",
+                       build=lambda v, e: _delete_build(v, e, "jnp"),
+                       backend="dynamic"),
+            TraceEntry(name="backend.dynamic.delete_fused",
+                       build=lambda v, e: _delete_build(v, e,
+                                                        "pallas_fused"),
+                       backend="dynamic"),
+            TraceEntry(name="backend.dynamic.delete_forest",
+                       build=lambda v, e: _delete_build(v, e, "forest"),
+                       backend="dynamic")]
+
+
+@register_trace_spec("distributed")
+def _distributed_specs():
+    from repro_torch.analysis.graph_utils import untraced
+    from repro_torch.launch.mesh import make_mesh
+
+    def build(v, e):
+        def fn(edges):
+            with untraced():
+                mesh = make_mesh(1, device=edges.device)
+                call = dist_mod.build_distributed_cc(
+                    DeviceGraph.from_edges(edges, v).shard(mesh), mesh)
+            return call.on_edges(edges)
+        return fn, (_meta((e, 2)),), [_ids(v, True)]
+    return [TraceEntry(name="backend.distributed", build=build,
+                       backend="distributed")]

@@ -18,13 +18,16 @@ Adding a backend is one decorator::
     def _run(plan):
         return my_engine(plan.graph, lift_steps=plan.lift_steps)
 
-The trace specs that feed ``repro.analysis`` (``VarInfo``,
-``TraceEntry``) are not ported yet (ROADMAP.md queue A, item A12).
+The trace specs that feed ``repro_torch.analysis`` live here too
+(``VarInfo``, ``TraceEntry``, ``register_trace_spec``,
+``trace_entries``): every backend registers the programs it runs,
+with ``meta`` tensors for example arguments.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Protocol, runtime_checkable
+from typing import Any, Callable, Dict, Optional, Protocol, \
+    runtime_checkable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +90,84 @@ class _FunctionBackend:
 
 
 BACKENDS: Dict[str, Backend] = {}
+
+
+# ---------------------------------------------------------------------------
+# Traceable entry specs (consumed by repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class VarInfo:
+    """Static facts the analyzer knows about ONE flat argument.
+
+    * ``range``  — inclusive (lo, hi) value bounds for integer inputs
+      (vertex ids lie in [0, |V|-1], true counts in [0, |E|], ...);
+      None = unbounded/unknown (the int32 pass treats it as TOP and
+      never reports overflow through it); the tracer draws the inputs
+      it runs on inside these bounds;
+    * ``padded`` — the array carries rows past a true count (the
+      prefix-padding / tombstone-log discipline): the padding-mask pass
+      seeds its taint here;
+    * ``mask``   — the argument IS a true-count scalar or alive mask:
+      a sanitizer source for the padding-mask pass.
+    """
+
+    range: Optional[tuple] = None
+    padded: bool = False
+    mask: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceEntry:
+    """One traceable program of the stack, as data.
+
+    ``build(num_nodes, num_edges)`` returns ``(fn, args, arg_info)``: a
+    function over FLAT tensor arguments, example arguments (``meta``
+    tensors, which play the part of the reference's
+    ``ShapeDtypeStruct``s: nothing is allocated) or Python scalars, and
+    a ``VarInfo`` per argument. ``repro_torch.analysis`` draws real
+    inputs of those shapes and dtypes inside the ``VarInfo`` ranges,
+    runs the entry once under a recording mode at each shape bucket and
+    runs its checker passes over the record.
+
+    ``contracts`` name the invariants the entry is held to:
+      * ``"transfer_free"`` — the program must run with zero host round
+        trips (the steady-state tick contract);
+      * ``"bucketed"``      — inputs must land on the pow2 shape-bucket
+        rule (``repro_torch.core.batch``), the retrace-storm guard.
+    """
+
+    name: str
+    build: Callable[[int, int], tuple]
+    contracts: frozenset = frozenset({"transfer_free", "bucketed"})
+    backend: Optional[str] = None        # owning BACKENDS key, if any
+
+
+TRACE_SPECS: Dict[str, Callable[[], list]] = {}
+
+
+def register_trace_spec(name: str):
+    """Decorator registering a zero-arg function returning the
+    ``TraceEntry`` list for one backend (or subsystem). The analysis
+    toolkit discovers every traceable program through this registry:
+    adding a backend without a trace spec is caught by its sweep
+    test."""
+    def deco(fn):
+        if name in TRACE_SPECS:
+            raise ValueError(f"trace spec {name!r} already registered")
+        TRACE_SPECS[name] = fn
+        return fn
+    return deco
+
+
+def trace_entries() -> list:
+    """Every registered ``TraceEntry``, sorted by name. Importing
+    ``repro_torch.api.backends`` (and ``repro_torch.analysis.entries``)
+    populates the registry; this accessor only reads it."""
+    out = []
+    for name in sorted(TRACE_SPECS):
+        out.extend(TRACE_SPECS[name]())
+    return sorted(out, key=lambda e: e.name)
 
 
 def register_backend(name: str, capabilities: Capabilities):

@@ -41,3 +41,14 @@ def get_arch(name: str):
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list(ARCH_IDS)}")
     return importlib.import_module(_MODULES[name])
+
+
+def all_cells():
+    """Every (arch, shape, skip reason) triple, in the reference's
+    order."""
+    cells = []
+    for arch_id in ARCH_IDS:
+        mod = get_arch(arch_id)
+        for shape in mod.SHAPES:
+            cells.append((arch_id, shape, mod.skip_reason(shape)))
+    return cells

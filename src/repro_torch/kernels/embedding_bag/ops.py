@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.kernels import Kernel, check_tensor, stream_of
 from repro_torch.kernels.embedding_bag.ref import ref_embedding_bag
+from repro_torch.roofline.analysis import record_kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 COMBINES = ("sum", "mean")
@@ -22,8 +23,11 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, *,
     and int32 [B, bag] indices, each in [0, Vocab), give [B, D] in the
     table dtype: each bag's rows summed in fp32, rounded once, and for
     ``mean`` divided by ``bag`` and rounded again. A CPU ``table`` runs
-    the plain version; a CUDA one the kernel. Unlike the reference's
-    wrapper, nothing is padded: the kernel has no bag tile."""
+    the plain version; a CUDA one the kernel; a ``meta`` one (the
+    dry-run) only the output's shape. Unlike the reference's wrapper,
+    nothing is padded: the kernel has no bag tile. Each launch reports
+    its bytes to the cost model (``roofline.analysis``): the indices,
+    the gathered rows and the output, once each."""
     if combine not in COMBINES:
         raise ValueError(f"combine must be one of {COMBINES}, got "
                          f"{combine!r}")
@@ -32,15 +36,21 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, *,
                          f"{tuple(indices.shape)}")
     if table.device.type == "cpu":
         return ref_embedding_bag(table, indices, combine)
+    b, bag = indices.shape
+    row = table.shape[1] * table.element_size()
+    nbytes = b * bag * (4 + row) + b * row
+    if table.device.type == "meta":
+        record_kernel("embedding_bag", nbytes)
+        return table.new_empty((b, table.shape[1]))
     check_tensor("table", table, tuple(DTYPES), 2)
     check_tensor("indices", indices, (torch.int32,), 2)
     if indices.device != table.device:
         raise ValueError("indices must be on the table's device")
-    b, bag = indices.shape
     out = torch.empty((b, table.shape[1]), dtype=table.dtype,
                       device=table.device)
     with torch.cuda.device(table.device):
         KERNEL.launch(table.data_ptr(), indices.data_ptr(), out.data_ptr(),
                       b, bag, table.shape[1], DTYPES[table.dtype],
                       int(combine == "mean"), stream_of(table))
+    record_kernel("embedding_bag", nbytes)
     return out

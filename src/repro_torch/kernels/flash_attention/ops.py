@@ -16,10 +16,12 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import Bodies, Kernel, check_tensor, stream_of
 from repro_torch.kernels.flash_attention.ref import ref_flash_attention
+from repro_torch.roofline.analysis import record_kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -40,6 +42,16 @@ def body_of(dtype: torch.dtype, d: int) -> Kernel:
     return WGMMA if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else FMA
 
 
+def causal_pairs(sq: int, sk: int, window: int) -> int:
+    """Unmasked (query, key) pairs of causal attention with queries and
+    keys at positions 0..: query i sees keys j <= i (and i - j < window
+    when window > 0), of the sk there are."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: float | None = None, causal: bool = True,
                     window: int = 0, softcap: float = 0.0) -> torch.Tensor:
@@ -52,7 +64,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cap * tanh(s / cap); ``sm_scale`` defaults to d ** -0.5. Scores,
     softmax statistics and the PV sum are fp32 and the output is
     rounded once. A CPU ``q`` runs the plain version (fp32 throughout);
-    a CUDA one the kernel body that ``body_of`` names. The Hopper body
+    a CUDA one the kernel body that ``body_of`` names; a ``meta`` one
+    (the dry-run) only the output's shape. Each launch reports its work
+    to the cost model (``roofline.analysis``): q, k, v and the output
+    once, 4 d FLOPs a query head and unmasked pair. The Hopper body
     (bfloat16, d = 64, 128, 256) rounds P to bfloat16 for the PV product,
     as the reference model's prefill does on its matrix unit, which
     moves the output by at most ``ref.p_rounding_bound`` from the plain
@@ -75,6 +90,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    window=window, softcap=softcap)
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not one of {HEAD_DIMS}")
+    body = body_of(q.dtype, d)
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    sk = k.shape[1]
+    flops = 4 * d * hq * b * (causal_pairs(sq, sk, window) if causal
+                              else sq * sk)
+    work = (body.symbol, nbytes, flops,
+            "bfloat16" if body is WGMMA else "float32")
+    if q.device.type == "meta":
+        record_kernel(*work)
+        return torch.empty_like(q)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_tensor(name, t, tuple(DTYPES), 4)
@@ -83,7 +108,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     out = torch.empty_like(q)
-    body = body_of(q.dtype, d)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
             k.shape[1], hq, hkv, d, scale, int(causal), int(window),
             float(softcap))
@@ -101,4 +125,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError(f"B * Hq = {b * hq} exceeds the grid's "
                                  "65535")
             FMA.launch(*args, DTYPES[q.dtype], stream_of(q))
+    record_kernel(*work)
     return out

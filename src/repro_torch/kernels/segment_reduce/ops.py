@@ -21,6 +21,7 @@ import torch
 from repro_torch.kernels import Bodies, Kernel, check_tensor, stream_of
 from repro_torch.kernels.segment_reduce.ref import (OPS, ref_segment_reduce,
                                                     reduce_identity)
+from repro_torch.roofline.analysis import record_kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -44,7 +45,10 @@ def segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor,
     ``ValueError`` on a broken promise; a CUDA one the kernel body the
     flag names (one call, one counted launch) and, as jax does, leaves
     the promise to the caller (a check would cost a host sync): ids that
-    are not ascending then give an unspecified result."""
+    are not ascending then give an unspecified result. A ``meta`` one
+    (the dry-run) gives only the output's shape. Each launch reports its
+    bytes to the cost model (``roofline.analysis``): rows, ids and
+    output once each."""
     reduce_identity(op)                      # validates op
     if segment_ids.dim() != 1 or segment_ids.shape[0] != data.shape[0]:
         raise ValueError(f"segment_ids must be [N] with N = "
@@ -57,11 +61,18 @@ def segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor,
         return ref_segment_reduce(data, segment_ids, num_segments, op)
     squeeze = data.dim() == 1
     rows = data[:, None] if squeeze else data
+    n, d = rows.shape
+    esize = data.element_size()
+    nbytes = n * (d * esize + 4) + num_segments * d * esize
+    body = "segment_reduce_sorted" if indices_are_sorted else "segment_reduce"
+    if data.device.type == "meta":
+        record_kernel(body, nbytes)
+        out = data.new_empty((num_segments, d))
+        return out[:, 0] if squeeze else out
     check_tensor("data", rows, tuple(DTYPES), 2)
     check_tensor("segment_ids", segment_ids, (torch.int32,), 1)
     if segment_ids.device != data.device:
         raise ValueError("segment_ids must be on data's device")
-    n, d = rows.shape
     out = torch.empty((num_segments, d), dtype=data.dtype,
                       device=data.device)
     args = (n, d, num_segments, DTYPES[data.dtype], OPS.index(op),
@@ -77,4 +88,5 @@ def segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor,
                 (num_segments, d), dtype=torch.float32, device=data.device)
             ATOMIC.launch(rows.data_ptr(), segment_ids.data_ptr(),
                           acc.data_ptr(), out.data_ptr(), *args)
+    record_kernel(body, nbytes)
     return out[:, 0] if squeeze else out

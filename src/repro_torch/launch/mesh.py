@@ -92,9 +92,15 @@ def make_mesh(n: int = 1, device=None, axis: str = "data") -> Mesh:
 
 
 def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh: 16x16 chips (2x16x16 with
+    ``multi_pod``). Raises: a pod of chips has no one-GPU analogue.
+    The dry-run (``launch.dryrun``) runs every cell on one card's worth
+    of ``meta`` tensors instead."""
     raise NotImplementedError(
-        "the production mesh (16x16 or 2x16x16 chips) has no one-GPU "
-        "analogue and is not ported yet (ROADMAP A11.5, launch/)")
+        f"the production mesh ({'2x16x16' if multi_pod else '16x16'} "
+        "chips) has no one-GPU analogue: the port runs on one card "
+        "(python -m repro_torch.launch.dryrun dry-runs every cell on "
+        "meta tensors)")
 
 
 def fsdp_axes(multi_pod: bool = False):

@@ -182,6 +182,8 @@ def _build_cc(shape: str, mesh) -> Cell:
     engine is built on a ``meta`` edge tensor: nothing is allocated
     until the step runs."""
     from repro_torch.configs import cc_graphs
+    # the engine is built on a meta edge tensor, which the Solver facade
+    # (concrete graphs only) cannot take  # analysis: ok[kernel-ast]
     from repro_torch.core.distributed import build_distributed_cc
     from repro_torch.graphs.device import DeviceGraph
 

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.graphs.device import resolve_device
 from repro_torch.kernels.autograd import segment_reduce
-from repro_torch.models.layers import from_numpy, normal_init
+from repro_torch.models.layers import (from_numpy, normal_init,
+                                      seeded_generator)
 
 
 def scatter_sum(values: torch.Tensor, dst: torch.Tensor,
@@ -122,7 +123,7 @@ def trainable(params: dict, requires_grad: bool) -> dict:
 def generator_and_device(generator, device) -> tuple:
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(dev).manual_seed(0)
+        generator = seeded_generator(dev)
     return {"generator": generator, "device": dev}, dev
 
 

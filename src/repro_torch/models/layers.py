@@ -36,6 +36,14 @@ def from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def seeded_generator(dev: torch.device) -> torch.Generator | None:
+    """The default generator of a model's ``init``: one of ``dev``
+    seeded 0, or None on ``meta``, where nothing is drawn (a dry-run's
+    parameters have shapes only)."""
+    return None if dev.type == "meta" else \
+        torch.Generator(dev).manual_seed(0)
+
+
 def normal_init(shape, std: float, dtype: torch.dtype, *,
                 generator: torch.Generator, device=None) -> torch.Tensor:
     """N(0, std²) drawn in float32, then cast to ``dtype``."""

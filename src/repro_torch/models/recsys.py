@@ -201,7 +201,7 @@ def init(cfg: RecsysConfig, *, generator: torch.Generator | None = None,
     ``requires_grad``."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(dev).manual_seed(0)
+        generator = L.seeded_generator(dev)
     g = {"generator": generator, "device": dev}
     d = cfg.d_interact
     zeros = lambda n: torch.zeros((n,), dtype=cfg.dtype, device=dev)

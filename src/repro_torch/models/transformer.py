@@ -224,7 +224,7 @@ def init(cfg: LMConfig, *, generator: torch.Generator | None = None,
     (``train.train_state.create`` takes only such parameters)."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(dev).manual_seed(0)
+        generator = L.seeded_generator(dev)
     g = {"generator": generator, "device": dev}
     d = cfg.d_model
     zeros = lambda *s: torch.zeros(s, dtype=cfg.dtype, device=dev)
@@ -607,20 +607,29 @@ class _RingWrites:
     ([B, S] positions). Negative positions are DROPPED: right-padded
     prefill garbage must not be written at all, since slot g % W is
     shared with the real position g - W, which may still be inside the
-    window. The kept (request, index) pairs are found once (one host
-    sync) and reused by every layer's write."""
+    window. No host sync: a write is two accumulating scatters over
+    every (request, index) pair, the first adding minus the old entry
+    at each kept slot (leaving exactly 0), the second the new entry. A
+    dropped pair adds zeros both times, which leaves its slot as it
+    was; the kept slots of one write are distinct, so each ends holding
+    exactly its new entry."""
 
     def __init__(self, positions: torch.Tensor):
         self.positions = positions
-        self._kept = None
+        self._keep = positions >= 0
+        self._rows = torch.arange(positions.shape[0],
+                                  device=positions.device)[:, None]
 
     def write(self, buf_arr: torch.Tensor, new: torch.Tensor
               ) -> torch.Tensor:
-        if self._kept is None:
-            self._kept = (self.positions >= 0).nonzero(as_tuple=True)
-        bi, si = self._kept
-        slots = self.positions[bi, si].long() % buf_arr.shape[1]
-        buf_arr[bi, slots] = new[bi, si].to(buf_arr.dtype)
+        idx = (self._rows, self.positions.long() % buf_arr.shape[1])
+        keep = self._keep.reshape(self._keep.shape
+                                  + (1,) * (buf_arr.dim() - 2))
+        zero = buf_arr.new_zeros(())
+        buf_arr.index_put_(idx, torch.where(keep, -buf_arr[idx], zero),
+                           accumulate=True)
+        buf_arr.index_put_(idx, torch.where(keep, new.to(buf_arr.dtype),
+                                            zero), accumulate=True)
         return buf_arr
 
 

@@ -1,11 +1,11 @@
 """repro_torch's front door against repro.api: the capability matrix of
-every backend the port registers; ``Solver.plan()`` choosing the same
-backend for the same reason, and ``solve()`` giving equal labels and
-WorkCounters on every registered backend, over the named corpus and the
-Table I stand-ins at scale 0.002 (a fresh in-memory autotune cache on
-each side); ``solve_static(method="auto")``; the autotune cache's keys
-and file round trip; the queries through the session; the session
-features of the later slices. Integer work: the tolerance is 0."""
+every backend the port registers; ``solve_static(method="auto")`` over
+the named corpus and the Table I stand-ins at scale 0.002 (a fresh
+in-memory autotune cache on each side); the autotune cache's keys and
+file round trip; the queries through the session; the session features
+of the later slices. ``Solver.plan()`` and ``solve()`` on every backend
+are in ``test_torch_api_solver*.py``. Integer work: the tolerance is
+0."""
 import json
 
 import numpy as np
@@ -13,34 +13,14 @@ import pytest
 import torch
 
 import repro
-from _graphgen import corpus
 from repro.connectivity import policy as jpolicy
 from repro.core import cc as jcc
-from repro.graphs.generators import table1_scaled
 import repro_torch
 from repro_torch.connectivity import policy as tpolicy
 from repro_torch.core import cc as tcc
 from repro_torch.launch.mesh import make_mesh
 
-NOT_PORTED = set()
-GRAPHS = [(name, n, e) for name, n, e in corpus()] + [
-    (f"{name}@0.002", g.num_nodes, g.edges) for name, g in
-    ((name, table1_scaled(name, scale=0.002, seed=1))
-     for name in ("usa-osm", "euro-osm-karls", "soc-live-journal",
-                  "kron-logn21"))]
-GIDS = [g[0] for g in GRAPHS]
-
-
-def _ints(w) -> dict:
-    return {k: int(v) for k, v in w._asdict().items()}
-
-
-def _open(n, edges):
-    """The same graph opened on each side, each with a cold cache."""
-    j = repro.Solver.open(edges, n, policy_cache=jpolicy.AutotuneCache(None))
-    t = repro_torch.Solver.open(edges, n, device="cpu",
-                                policy_cache=tpolicy.AutotuneCache(None))
-    return j, t
+from _api_common import GIDS, GRAPHS, NOT_PORTED, _ints, _open
 
 
 def test_capability_matrix_matches_reference():
@@ -54,58 +34,6 @@ def test_capability_matrix_matches_reference():
     assert repro_torch.get_backend("distributed").capabilities.sharded
     with pytest.raises(KeyError, match="no-such-backend"):
         repro_torch.get_backend("no-such-backend")
-
-
-@pytest.mark.parametrize("name,n,edges", GRAPHS, ids=GIDS)
-def test_solver_plans_and_solves_match_reference(name, n, edges):
-    j, t = _open(n, edges)
-    jp, tp = j.plan(), t.plan()
-    assert (tp.backend, tp.reason) == (jp.backend, jp.reason)
-    assert tp.as_dict() == jp.as_dict()
-    assert tp.explain() == jp.explain()
-    assert tp.trace_tags() == jp.trace_tags()
-    for backend in repro_torch.available_backends():
-        caps = repro_torch.get_backend(backend).capabilities
-        if caps.batched or caps.sharded:
-            # a fleet backend, or one that needs a mesh these sessions
-            # lack: both sessions refuse it, alike
-            with pytest.raises(ValueError) as jerr:
-                j.solve(backend=backend)
-            with pytest.raises(ValueError) as terr:
-                t.solve(backend=backend)
-            assert str(terr.value) == str(jerr.value)
-            continue
-        want = j.solve(backend=backend)
-        got = t.solve(backend=backend)
-        assert got.labels.dtype == torch.int32, backend
-        np.testing.assert_array_equal(got.labels.numpy(),
-                                      np.asarray(want.labels),
-                                      err_msg=backend)
-        assert got.work.as_ints() == _ints(want.work), backend
-        if backend == "pallas":
-            assert set(got.work.as_ints().values()) == {0}
-        for key in ("sampled_stats", "hostloop_stats"):
-            assert t.last_plan.artifacts.get(key) == \
-                j.last_plan.artifacts.get(key), (backend, key)
-    assert t.last_method == j.last_method
-    # the default route, then the queries over the session's labels
-    got, want = t.solve(), j.solve()
-    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
-    assert got.work.as_ints() == _ints(want.work)
-    assert t.num_components() == j.num_components()
-    np.testing.assert_array_equal(t.component_histogram(),
-                                  j.component_histogram())
-    if n:
-        rng = np.random.default_rng(n)
-        pairs = rng.integers(0, n, (13, 2))
-        vertices = rng.integers(0, n, 11)
-        np.testing.assert_array_equal(t.same_component(pairs),
-                                      j.same_component(pairs))
-        np.testing.assert_array_equal(t.component_size(vertices),
-                                      j.component_size(vertices))
-        np.testing.assert_array_equal(t.component_sizes().numpy(),
-                                      np.asarray(j.component_sizes()))
-        assert t.connected(0, n - 1) == j.connected(0, n - 1)
 
 
 @pytest.mark.parametrize("name,n,edges", GRAPHS, ids=GIDS)

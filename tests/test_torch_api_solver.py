@@ -1,0 +1,15 @@
+"""repro_torch's ``Solver`` against repro.api's on the named corpus: the
+same plan, and equal labels and WorkCounters on every registered backend
+(``tests/_api_common.py``)."""
+import pytest
+
+from _api_common import (GRAPHS, TABLE1,
+                         solver_plans_and_solves_match_reference)
+
+CASES = [g for g in GRAPHS if g[0] not in TABLE1]
+
+
+@pytest.mark.parametrize("name,n,edges", CASES,
+                         ids=[g[0] for g in CASES])
+def test_solver_plans_and_solves_match_reference(name, n, edges):
+    solver_plans_and_solves_match_reference(name, n, edges)

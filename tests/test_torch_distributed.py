@@ -226,8 +226,11 @@ def test_mesh_helpers():
     for multi in (False, True):
         assert tmesh.fsdp_axes(multi) == jmesh.fsdp_axes(multi)
         assert tmesh.all_axes(multi) == jmesh.all_axes(multi)
-    with pytest.raises(NotImplementedError, match="A11.5"):
+    with pytest.raises(NotImplementedError,
+                       match=r"mesh \(16x16 chips\) has no one-GPU"):
         tmesh.make_production_mesh()
+    with pytest.raises(NotImplementedError, match=r"\(2x16x16 chips\)"):
+        tmesh.make_production_mesh(multi_pod=True)
 
 
 def test_make_mesh_refuses_cpu_fallback(monkeypatch):

@@ -1,7 +1,8 @@
 """repro_torch's GNN training against the reference's, on the CPU: the
 configs (shapes, specs, configs of every shape), the train cells
 (built without allocating), whole AdamW steps of all four GNNs from a
-carried reference TrainState, and the launcher with a restart.
+carried reference TrainState. The launcher with a restart is in
+``test_torch_gnn_launcher*.py``.
 
 AdamW steps (float32), each from the same carried state on both sides:
 loss and grad norm within 1e-6 relative (the same fp32 terms in other
@@ -17,7 +18,6 @@ NequIP's ``radial.b1`` and ``gate_b`` too, and the parameter gate
 would miss a skipped decay.
 """
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -262,21 +262,3 @@ def test_train_cell_builds_without_allocating(arch, monkeypatch):
     assert made == []
     assert built == [{}] * len(mod.SHAPES)
     assert M.param_shapes(mod.make_config("ogb_products"))
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_launcher_trains_every_gnn_and_recovers(arch, tmp_path, capsys):
-    """``launch.train --arch <gnn> --steps 30 --fail-at 15 --device
-    cpu``: returns 0 after one restart (from the checkpoint at 10), and
-    the loss falls."""
-    rc = launch_train.main(["--arch", arch, "--steps", "30", "--fail-at",
-                            "15", "--ckpt-every", "10", "--device", "cpu",
-                            "--ckpt", str(tmp_path / "ck")])
-    out = capsys.readouterr().out
-    assert rc == 0
-    m = re.search(rf"\[train\] {re.escape(arch)} on cpu: 35 steps, 1 "
-                  r"restarts, loss ([\d.]+) -> ([\d.]+)", out)
-    assert m, out
-    assert float(m.group(2)) < float(m.group(1))
-    assert sorted(p.name for p in (tmp_path / "ck").iterdir())[-1] == \
-        "step_00000030"

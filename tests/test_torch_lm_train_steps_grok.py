@@ -1,0 +1,11 @@
+"""Whole AdamW train steps of ``build_cell(arch, "train_4k")`` against
+the reference's, on the CPU, for grok-1 (bf16 moments, a 16-microbatch
+bf16 sum); the gates are in ``tests/_lm_train_common.py``."""
+import pytest
+
+from _lm_train_common import train_steps_match_reference
+
+
+@pytest.mark.parametrize("arch", ("grok-1-314b",))
+def test_train_steps_match_reference(arch, monkeypatch):
+    train_steps_match_reference(arch, monkeypatch)

@@ -59,6 +59,10 @@ def test_import_loads_no_jax_and_no_reference():
             "import repro_torch.train.fault_tolerance\n"
             "import repro_torch.train.compression\n"
             "import repro_torch.launch.train\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.elastic\n"
+            "import repro_torch.roofline.analysis, repro_torch.analysis\n"
+            "import repro_torch.analysis.entries, repro_torch.analysis.__main__\n"
+            "repro_torch.analysis.entries.all_entries()\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
             "                              'ml_dtypes')]\n"
