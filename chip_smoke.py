@@ -380,7 +380,36 @@ model's ``init`` seed 0, batches from seed 26):
     call) beside its plain version and ``index_add_``, and K5's
     ``gather_rows`` at that shape beside ``index_select``. Last, ``python
     -m repro_torch.launch.train --arch gin-tu --steps 30 --fail-at 15``
-    in-process on the card returns 0 after one restart.
+    in-process on the card returns 0 after one restart;
+
+then the launch and analysis tools:
+
+27. the dry-run of every cell on ``meta`` (the LM train cells'
+    ``useful_flop_ratio`` inside the remat band), the cost model's bound
+    against DCN-v2 ``serve_bulk`` and a graphsage-reddit step on the
+    card, the transfer pass's sync count against the card's on the
+    service ticks and the queries, an elastic rescale card -> CPU ->
+    card bit-equal, and ``python -m repro_torch.analysis`` on the card
+    against ``analysis_baseline_torch.json`` (the findings beyond it
+    printed, not gated);
+
+and NequIP over the slots of one card:
+
+28. nequip ``molecule`` at full width (V = 3,840, E = 16,384, seed 0
+    weights): the train step sharded over 1, 2, 4 and 8 slots
+    (``build_cell("nequip", "molecule", mesh=make_mesh(k))``), each
+    slot count's loss and gradient on the batch and on ``GNN_CLOUD`` - 1
+    variants of it (edges permuted, nodes relabelled) held to phase
+    26's gate against the one-slot step's runs; two controls must break
+    it: the gradient times k (the reference's factor) and the last
+    slot's edge shard masked out. K4 / K5 launches of the passes and of
+    ``GNN_STEPS`` steps (counts set to 0 just before, read just after)
+    equal ``gnn_launches(..., slots=k)``; the step timed at each k
+    (host clock to a synchronize, the median of steps 2-4).
+    ``compressed_psum`` over 4 slots of the slots' gradients, two
+    error-feedback rounds, bit-equal to the same call on the CPU. K4 and
+    K5 at a 4-slot chunk's largest sum beside their plain versions and
+    ``index_add_`` / ``index_select``.
 
 ``--only GROUP[,GROUP...]`` runs some phase groups (``GROUPS``; the
 CC phases 2-5 come with the groups that reuse their graphs). It prints
@@ -517,15 +546,26 @@ def device_kernels(torch, fn, reps: int = 1) -> tuple[dict, float]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"])), total
 
 
-def launch_ms(torch, fn, symbol: str) -> list:
+def launch_ms(torch, fn, symbol: str, kernel) -> list:
     """The device ms of each launch of the kernels whose name holds
     ``symbol``, in launch order, over one call of ``fn`` under
-    ``torch.profiler``."""
+    ``torch.profiler``. ``kernel`` is the wrapper's launch counter
+    (``.launches``): a profile that holds fewer such launches than the
+    wrapper made in that call (the device trace can drop events) is
+    taken again, up to three times; the callers check the count."""
     from torch.autograd import DeviceType
-    prof = profiled(torch, fn)
-    ev = sorted((e for e in prof.events()
-                 if e.device_type != DeviceType.CPU and symbol in e.name),
-                key=lambda e: e.time_range.start)
+    for attempt in range(3):
+        before = kernel.launches
+        prof = profiled(torch, fn)
+        made = kernel.launches - before
+        ev = sorted((e for e in prof.events()
+                     if e.device_type != DeviceType.CPU
+                     and symbol in e.name),
+                    key=lambda e: e.time_range.start)
+        if len(ev) == made:
+            break
+        print(f"profile of {symbol} holds {len(ev)} of the {made} launches "
+              f"the wrapper made (try {attempt + 1} of 3)")
     return [e.time_range.elapsed_us() / 1e3 for e in ev]
 
 
@@ -2248,7 +2288,7 @@ def batched_phases(torch, np, dev, rows: dict, card: str) -> dict:
             with forced_body(cc_ops, body):
                 per_launch = launch_ms(torch, lambda: (
                     calls.clear(), Solver.solve_batch(dfleet)),
-                    "cc_fused_batched")
+                    "cc_fused_batched", cc_ops.BATCHED)
                 check(len(per_launch) == len(calls) == launches,
                       f"profile holds {len(per_launch)} batched launches "
                       f"({body} body), {len(calls)} calls, the main path "
@@ -4317,14 +4357,16 @@ def gnn_host_batch(np, arch: str, shape: str, cfg, d: dict, seed: int,
     return b
 
 
-def gnn_launches(arch: str, cfg, batch: dict) -> tuple:
+def gnn_launches(arch: str, cfg, batch: dict, slots: int = 1) -> tuple:
     """(K4, K5) launches one train step makes, reckoned from the model.
     Every message sum is one K4 launch a forward; ``remat`` runs a
     layer's forward again in the backward (NequIP's layer and its edge
     chunks each: twice more). K5 is the backward of each sum whose input
     needs a gradient: not a first layer's sum over the input features
     (GraphSAGE, GIN), and not NequIP's last-layer sums into l > 0 (the
-    readout takes only scalars)."""
+    readout takes only scalars). NequIP over ``slots`` slots: each slot
+    sums its own E / slots edges, in chunks of ``edge_chunk``, and its
+    own partial energy."""
     L = cfg.n_layers
     if arch == "graphsage-reddit":             # mean: sum and degree
         return 2 * L, L - 1
@@ -4335,11 +4377,11 @@ def gnn_launches(arch: str, cfg, batch: dict) -> tuple:
         return (4 if cfg.remat else 2) * L, 2 * L
     from repro_torch.models.gnn.nequip import coupling_paths
     paths = coupling_paths(cfg.l_max)
-    e = batch["src"].shape[0]
+    e = batch["src"].shape[0] // slots
     chunks = -(-e // min(cfg.edge_chunk, e))
     scalar = sum(1 for p in paths if p[2] == 0)
-    return ((3 if cfg.remat else 1) * L * chunks * len(paths) + 1,
-            ((L - 1) * len(paths) + scalar) * chunks + 1)
+    return (slots * ((3 if cfg.remat else 1) * L * chunks * len(paths) + 1),
+            slots * (((L - 1) * len(paths) + scalar) * chunks + 1))
 
 
 @contextlib.contextmanager
@@ -4379,6 +4421,27 @@ def permuted_edges(np, torch, batch: dict, seed: int) -> dict:
     return out
 
 
+def permuted_graph(np, torch, batch: dict, seed: int) -> dict:
+    """The batch with its edges permuted (``permuted_edges``) and its
+    nodes relabelled: every node array (as many rows as ``positions``)
+    in a random order, ``src`` / ``dst`` mapped to the new ids. The same
+    function, with its node-side sums (per-graph energies, the head's
+    and the embedding's gradients over the nodes) in other fp32 orders
+    too."""
+    out = permuted_edges(np, torch, batch, seed)
+    v = batch["positions"].shape[0]
+    perm = torch.from_numpy(np.random.default_rng((seed, 1)).permutation(
+        v)).to(batch["positions"].device)
+    new_id = torch.empty_like(perm)
+    new_id[perm] = torch.arange(v, device=perm.device)
+    for k, x in batch.items():
+        if k in ("src", "dst"):
+            out[k] = new_id[out[k].long()].to(x.dtype)
+        elif x.dim() and x.shape[0] == v:
+            out[k] = x[perm]
+    return out
+
+
 def dropped_in_edges(torch, batch: dict) -> tuple:
     """The batch without the edges into one node (of the nodes the loss
     reads, the first with the largest in-degree in the last edge list):
@@ -4401,6 +4464,118 @@ def dropped_in_edges(torch, batch: dict) -> tuple:
     return out, node, int((~keep).sum())
 
 
+GNN_STATS = ("loss_gap", "grad_rel_diff", "worst_leaf_rel_diff")
+
+
+def gnn_gaps(np, names: list, run: tuple, ref: tuple) -> dict:
+    """The gaps of one (loss, gradient leaves) run to another: the
+    loss's, the whole gradient's relative to the reference's norm, and
+    the worst leaf's relative to its own."""
+    from repro_torch.train.optimizer import global_norm
+    diff = [float((a - b).norm()) for a, b in zip(run[1], ref[1])]
+    rel = {n: x / float(b.norm()) for n, x, b in
+           zip(names, diff, ref[1]) if float(b.norm())}
+    worst = max(rel, key=rel.get)
+    return dict(loss_gap=abs(run[0] - ref[0]),
+                grad_rel_diff=float(np.sqrt(sum(x * x for x in diff)))
+                / float(global_norm(dict(zip(names, ref[1])))),
+                worst_leaf=worst, worst_leaf_rel_diff=rel[worst])
+
+
+def gnn_nearest(np, names: list, run: tuple, plain: list) -> dict:
+    """A run's nearest gap to any of the plain runs, stat by stat."""
+    each = [gnn_gaps(np, names, run, p) for p in plain]
+    return {x: min(g[x] for g in each) for x in GNN_STATS}
+
+
+def gnn_gate(np, names: list, plain: list) -> tuple:
+    """(the gate, the widest gap between two plain runs): the factor
+    times the widest gap, the loss's at least the factor times one fp32
+    ulp of the loss (a scalar can read no gap by chance)."""
+    within = [gnn_gaps(np, names, a, b) for i, a in enumerate(plain)
+              for b in plain[i + 1:]]
+    widest = {x: max(g[x] for g in within) for x in GNN_STATS}
+    gate = {x: GNN_GATE_FACTOR * widest[x] for x in GNN_STATS}
+    gate["loss_gap"] = max(gate["loss_gap"], GNN_GATE_FACTOR * float(
+        np.spacing(np.float32(abs(plain[0][0])))))
+    return gate, widest
+
+
+def k4_k5_at(torch, dev, rows_in, ids, n_seg: int, what: str) -> tuple:
+    """(K4's entry, K5's entry) at one GNN shape: K4's atomic body on
+    ``rows_in`` [E, D] f32 summed into ``n_seg`` rows by the unsorted
+    ``ids`` against its plain version (gate 1e-5 (1 + |ref|)) and
+    ``index_add_``; K5's ``gather_rows`` of [n_seg, D] gradient rows by
+    ``ids`` against ``index_select`` (bit-equal). Each timed (CUDA
+    events and device time), with its byte bound."""
+    from repro_torch.kernels import autograd
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.segment_reduce import ops as sr_ops, \
+        ref as sr_ref
+    with torch.no_grad():
+        got = sr_ops.segment_reduce(rows_in, ids, n_seg)
+        want_k4 = sr_ref.ref_segment_reduce(rows_in, ids, n_seg)
+        ids64 = ids.long()
+
+        def index_add():
+            return torch.zeros((n_seg, rows_in.shape[1]),
+                               dtype=torch.float32,
+                               device=dev).index_add_(0, ids64, rows_in)
+        lib = index_add()
+        torch.cuda.synchronize()
+        err = float(((got - want_k4).abs() / (1 + want_k4.abs())).max())
+        check(err <= 1e-5, f"K4 at the GNN shape is {err} from plain (gate "
+                           "1e-5 (1 + |ref|))")
+        n_e, dim = rows_in.shape
+        k4_bound, k4_by = bound(4 * n_e * dim + 4 * n_e + 4 * n_seg * dim,
+                                n_e * dim)
+        k4_entry = dict(
+            shape=f"{what}: [{n_e}, {dim}] f32 rows into {n_seg} by "
+                  "unsorted ids",
+            body="segment_reduce", max_abs_err=float(
+                (got - want_k4).abs().max()), rel_err=err,
+            library_max_abs_err=float((lib - want_k4).abs().max()),
+            ms=time_ms(torch, lambda: sr_ops.segment_reduce(
+                rows_in, ids, n_seg)),
+            device_ms=device_ms(torch, lambda: sr_ops.segment_reduce(
+                rows_in, ids, n_seg)),
+            plain_ms=time_ms(torch, lambda: sr_ref.ref_segment_reduce(
+                rows_in, ids, n_seg)),
+            library_ms=time_ms(torch, index_add),
+            library_device_ms=device_ms(torch, index_add),
+            library="index_add_ of the f32 rows on f32 zeros",
+            bound_ms=k4_bound, bound_by=k4_by)
+        del got, want_k4, lib
+        # K5: the backward's gather_rows at the same shape
+        g_out = torch.randn((n_seg, dim), device=dev,
+                            generator=torch.Generator(dev)
+                            .manual_seed(GNN_SEED))
+        got = autograd.gather_rows(g_out, ids, n_seg)
+        want_k5 = torch.index_select(g_out, 0, ids64)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want_k5), "K5's gather_rows at the GNN shape "
+              "differs from index_select")
+        k5_bound, k5_by = bound(4 * n_e * dim + 4 * n_e + 4 * n_e * dim, 0)
+        idx2 = ids[:, None].contiguous()
+        k5_entry = dict(
+            shape=f"gather_rows, {what}: [{n_seg}, {dim}] f32 gradient "
+                  f"rows by {n_e} ids (bags of 1)",
+            max_abs_err=0.0,
+            ms=time_ms(torch, lambda: eb_ops.embedding_bag(g_out, idx2)),
+            device_ms=device_ms(torch, lambda: eb_ops.embedding_bag(
+                g_out, idx2)),
+            route_ms=time_ms(torch, lambda: autograd.gather_rows(
+                g_out, ids, n_seg)),
+            plain_ms=time_ms(torch, lambda: g_out[ids64]),
+            library_ms=time_ms(torch, lambda: torch.index_select(
+                g_out, 0, ids64)),
+            library_device_ms=device_ms(torch, lambda: torch.index_select(
+                g_out, 0, ids64)),
+            library="torch.index_select (bit-equal)",
+            bound_ms=k5_bound, bound_by=k5_by)
+    return k4_entry, k5_entry
+
+
 def gnn_phases(torch, np, dev, rows: dict, card: str) -> dict:
     """Phase 26: the GNN family's train cells at full width. Adds a
     ``gnn`` entry to the ``segment_reduce_atomic`` and ``embedding_bag``
@@ -4413,10 +4588,8 @@ def gnn_phases(torch, np, dev, rows: dict, card: str) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.configs.gnn_common import SHAPE_DEFS
     from repro_torch.graphs.sampler import sample_minibatch
-    from repro_torch.kernels import autograd
     from repro_torch.kernels.embedding_bag import ops as eb_ops
-    from repro_torch.kernels.segment_reduce import ops as sr_ops, \
-        ref as sr_ref
+    from repro_torch.kernels.segment_reduce import ops as sr_ops
     from repro_torch.launch import steps
     from repro_torch.launch import train as launch_train
     from repro_torch.models.gnn import model_of
@@ -4508,34 +4681,15 @@ def gnn_phases(torch, np, dev, rows: dict, card: str) -> dict:
         dropped, node, n_drop = dropped_in_edges(torch, batch)
         fault = loss_and_grads(M, params, dropped, cfg)
         del dropped, variants
-        stats = ("loss_gap", "grad_rel_diff", "worst_leaf_rel_diff")
-
-        def gaps(run, ref) -> dict:
-            diff = [float((a - b).norm()) for a, b in zip(run[1], ref[1])]
-            rel = {n: x / float(b.norm()) for n, x, b in
-                   zip(names, diff, ref[1]) if float(b.norm())}
-            worst = max(rel, key=rel.get)
-            return dict(loss_gap=abs(run[0] - ref[0]),
-                        grad_rel_diff=float(np.sqrt(sum(x * x for x in diff)))
-                        / float(global_norm(dict(zip(names, ref[1])))),
-                        worst_leaf=worst, worst_leaf_rel_diff=rel[worst])
-
-        def nearest(run) -> dict:
-            each = [gaps(run, p) for p in plain]
-            return {x: min(g[x] for g in each) for x in stats}
-        within = [gaps(a, b) for i, a in enumerate(plain)
-                  for b in plain[i + 1:]]
-        gate = {x: GNN_GATE_FACTOR * max(g[x] for g in within) for x in stats}
-        # a scalar can read no gap by chance: the loss's gate is at least
-        # the factor times one fp32 ulp of the loss
-        gate["loss_gap"] = max(gate["loss_gap"], GNN_GATE_FACTOR * float(
-            np.spacing(np.float32(abs(plain[0][0])))))
-        near = [nearest(k) for k in kernel]
+        stats = GNN_STATS
+        gate, widest = gnn_gate(np, names, plain)
+        near = [gnn_nearest(np, names, k, plain) for k in kernel]
         read = {"kernel": {x: min(r[x] for r in near) for x in stats},
-                "kernel_first_vs_plain_first": gaps(kernel[0], plain[0]),
-                "plain_widest": {x: max(g[x] for g in within)
-                                 for x in stats},
-                "kernel_dropped_in_edges": nearest(fault)}
+                "kernel_first_vs_plain_first": gnn_gaps(
+                    np, names, kernel[0], plain[0]),
+                "plain_widest": widest,
+                "kernel_dropped_in_edges": gnn_nearest(np, names, fault,
+                                                       plain)}
         check(all(np.isfinite(k[0]) for k in kernel)
               and all(bool(torch.isfinite(g).all()) for k in kernel
                       for g in k[1]),
@@ -4690,73 +4844,10 @@ def gnn_phases(torch, np, dev, rows: dict, card: str) -> dict:
         if arch == "graphsage-reddit":
             with torch.no_grad():
                 rows_in = batch["x"][batch["src_0"]].contiguous()
-                ids = batch["dst_0"]
-                n_seg = batch["x"].shape[0]
-                got = sr_ops.segment_reduce(rows_in, ids, n_seg)
-                want_k4 = sr_ref.ref_segment_reduce(rows_in, ids, n_seg)
-                ids64 = ids.long()
-
-                def index_add():
-                    return torch.zeros((n_seg, rows_in.shape[1]),
-                                       dtype=torch.float32,
-                                       device=dev).index_add_(0, ids64,
-                                                              rows_in)
-                lib = index_add()
-                torch.cuda.synchronize()
-                err = float(((got - want_k4).abs() / (1 + want_k4.abs()))
-                            .max())
-                check(err <= 1e-5, f"K4 at the GNN shape is {err} from "
-                                   "plain (gate 1e-5 (1 + |ref|))")
-                n_e, dim = rows_in.shape
-                k4_bound, k4_by = bound(4 * n_e * dim + 4 * n_e
-                                        + 4 * n_seg * dim, n_e * dim)
-                k4_entry = dict(
-                    shape=f"GraphSAGE layer 0 at minibatch_lg: [{n_e}, {dim}]"
-                          f" f32 rows into {n_seg} by unsorted dst_0",
-                    body="segment_reduce", max_abs_err=float(
-                        (got - want_k4).abs().max()), rel_err=err,
-                    library_max_abs_err=float((lib - want_k4).abs().max()),
-                    ms=time_ms(torch, lambda: sr_ops.segment_reduce(
-                        rows_in, ids, n_seg)),
-                    device_ms=device_ms(torch, lambda: sr_ops.segment_reduce(
-                        rows_in, ids, n_seg)),
-                    plain_ms=time_ms(torch, lambda: sr_ref.ref_segment_reduce(
-                        rows_in, ids, n_seg)),
-                    library_ms=time_ms(torch, index_add),
-                    library_device_ms=device_ms(torch, index_add),
-                    library="index_add_ of the f32 rows on f32 zeros",
-                    bound_ms=k4_bound, bound_by=k4_by)
-                del got, want_k4, lib
-                # K5: the backward's gather_rows at the same shape
-                g_out = torch.randn((n_seg, dim), device=dev,
-                                    generator=torch.Generator(dev)
-                                    .manual_seed(GNN_SEED))
-                got = autograd.gather_rows(g_out, ids, n_seg)
-                want_k5 = torch.index_select(g_out, 0, ids64)
-                torch.cuda.synchronize()
-                check(torch.equal(got, want_k5), "K5's gather_rows at the "
-                      "GNN shape differs from index_select")
-                k5_bound, k5_by = bound(4 * n_e * dim + 4 * n_e
-                                        + 4 * n_e * dim, 0)
-                idx2 = ids[:, None].contiguous()
-                k5_entry = dict(
-                    shape=f"gather_rows at minibatch_lg: [{n_seg}, {dim}] f32"
-                          f" gradient rows by {n_e} ids (bags of 1)",
-                    max_abs_err=0.0,
-                    ms=time_ms(torch, lambda: eb_ops.embedding_bag(
-                        g_out, idx2)),
-                    device_ms=device_ms(torch, lambda: eb_ops.embedding_bag(
-                        g_out, idx2)),
-                    route_ms=time_ms(torch, lambda: autograd.gather_rows(
-                        g_out, ids, n_seg)),
-                    plain_ms=time_ms(torch, lambda: g_out[ids64]),
-                    library_ms=time_ms(torch, lambda: torch.index_select(
-                        g_out, 0, ids64)),
-                    library_device_ms=device_ms(torch, lambda: torch.
-                                                index_select(g_out, 0, ids64)),
-                    library="torch.index_select (bit-equal)",
-                    bound_ms=k5_bound, bound_by=k5_by)
-                del got, want_k5, g_out, rows_in, idx2
+            k4_entry, k5_entry = k4_k5_at(
+                torch, dev, rows_in, batch["dst_0"], batch["x"].shape[0],
+                "GraphSAGE layer 0 at minibatch_lg")
+            del rows_in
             print(f"K4 at the GNN shape ({card}): {k4_entry}")
             print(f"K5 at the GNN shape ({card}): {k5_entry}")
         times["cell_s"] = time.perf_counter() - t_cell
@@ -4800,6 +4891,230 @@ def gnn_phases(torch, np, dev, rows: dict, card: str) -> dict:
           f"{launches['k5']} over the cells' {GNN_STEPS}-step runs")
     out["phase_s"] = phase_s
     return {"gnn": out}
+
+
+# phase 28: NequIP's sharded train step and compressed_psum over the
+# slots of one card
+GNN_SHARDED_SLOTS = (1, 2, 4, 8)
+CPSUM_SLOTS = 4
+
+
+def gnn_sharded_phases(torch, np, dev, rows: dict, card: str) -> dict:
+    """Phase 28: nequip ``molecule`` at full width, its train step
+    sharded over 1, 2, 4 and 8 slots of the card (``build_cell("nequip",
+    "molecule", mesh=make_mesh(k))``) against the one-slot step, and
+    ``compressed_psum`` over 4 slots against the same call on the CPU.
+    Adds a ``gnn_sharded`` entry to the ``segment_reduce_atomic`` and
+    ``embedding_bag`` rows; returns each slot count's numbers."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import SHAPE_DEFS
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.segment_reduce import ops as sr_ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.gnn import common as C
+    from repro_torch.models.gnn import nequip
+    from repro_torch.train.compression import (compressed_psum,
+                                               shared_payloads)
+    from repro_torch.train.optimizer import named
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = "molecule"
+    cfg = get_arch("nequip").make_config(shape)
+    host = gnn_host_batch(np, "nequip", shape, cfg, SHAPE_DEFS[shape],
+                          GNN_SEED, {})
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    e_n = host["src"].shape[0]
+    params = nequip.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                         device=dev, requires_grad=True)
+    names = list(named(params))
+    # the sharded step splits node-side sums (the per-graph energies, the
+    # head's and the embedding's gradients over |V| rows) as well as the
+    # edge sums: the variants relabel the nodes too, or the one-slot
+    # cloud would not move the node-side orders at all
+    variants = [batch] + [permuted_graph(np, torch, batch, GNN_SEED + i)
+                          for i in range(1, GNN_CLOUD)]
+
+    def run(cell, b) -> tuple:
+        loss, grads = cell.step.loss_and_grads(params, b)
+        return float(loss), [grads[n] for n in names]
+
+    # the plain step: one slot, the route phase 26 holds to all-plain
+    plain_cell = steps.build_cell("nequip", shape, device=dev)
+    plain = [run(plain_cell, b) for b in variants]
+    torch.cuda.synchronize()
+    gate, widest = gnn_gate(np, names, plain)
+    print(f"28 nequip {shape}, |V| {host['positions'].shape[0]}, |E| {e_n} "
+          f"({card}): the one-slot step's widest gap between {GNN_CLOUD} "
+          f"runs (edges permuted, nodes relabelled) {widest}; gate {gate}")
+
+    out, slot_grads = {}, None
+    for k in GNN_SHARDED_SLOTS:
+        t_k = time.perf_counter()
+        cell = steps.build_cell("nequip", shape, mesh=make_mesh(k))
+        per_step = gnn_launches("nequip", cfg, host, slots=k)
+        sr_ops.KERNEL.launches = eb_ops.KERNEL.launches = 0
+        sharded = [run(cell, b) for b in variants]
+        torch.cuda.synchronize()
+        passes = (sr_ops.ATOMIC.launches, eb_ops.KERNEL.launches)
+        want = (GNN_CLOUD * per_step[0], GNN_CLOUD * per_step[1])
+        check(passes == want and sr_ops.SORTED.launches == 0,
+              f"{k} slots: {GNN_CLOUD} passes launched K4 / K5 {passes}, "
+              f"the model's count is {want}")
+        check(all(np.isfinite(r[0]) for r in sharded)
+              and all(bool(torch.isfinite(g).all()) for r in sharded
+                      for g in r[1]),
+              f"{k} slots: a loss or gradient is not finite")
+        near = [gnn_nearest(np, names, r, plain) for r in sharded]
+        read = {x: min(r[x] for r in near) for x in GNN_STATS}
+        over = [x for x in GNN_STATS if read[x] > gate[x]]
+        check(not over, f"{k} slots: the sharded step is beyond "
+              f"{GNN_GATE_FACTOR} times the one-slot step's widest gap in "
+              f"{over}: {read} against {gate}")
+        # controls: the reference's factor k on the gradient; the last
+        # slot's edge shard masked out (every edge at one slot)
+        controls = {}
+        if k > 1:
+            scaled = [(r[0], [g * k for g in r[1]]) for r in sharded]
+            controls["gradient_times_k"] = {x: min(
+                gnn_nearest(np, names, r, plain)[x] for r in scaled)
+                for x in GNN_STATS}
+        mask = torch.ones(e_n, dtype=torch.float32, device=dev)
+        mask[e_n - e_n // k:] = 0
+        controls["last_slot_edges_dropped"] = gnn_nearest(
+            np, names, run(cell, {**batch, "edge_mask": mask}), plain)
+        caught = {c: [x for x in GNN_STATS if r[x] > gate[x]]
+                  for c, r in controls.items()}
+        check(all(caught.values()), f"{k} slots: a control passes the gate: "
+              f"{controls} against {gate}")
+        if k == CPSUM_SLOTS:
+            slot_grads = [dict(zip(names, r[1])) for r in sharded[:k]]
+        del sharded, near
+
+        # the train step: counts set to 0 just before, read just after
+        state = cell.init_state(C.tree_map(
+            lambda t: t.detach().clone().requires_grad_(True), params))
+        torch.cuda.synchronize()
+        sr_ops.KERNEL.launches = eb_ops.KERNEL.launches = 0
+        metrics, step_s = [], []
+        for _ in range(GNN_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(cell.step(state, batch)[1])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = {"k4_atomic": sr_ops.ATOMIC.launches,
+                    "k4_sorted": sr_ops.SORTED.launches,
+                    "k5": eb_ops.KERNEL.launches}
+        want = {"k4_atomic": GNN_STEPS * per_step[0], "k4_sorted": 0,
+                "k5": GNN_STEPS * per_step[1]}
+        check(launches == want, f"{k} slots: {GNN_STEPS} steps launched "
+              f"{launches}, the model's count is {want}")
+        losses = [float(m["loss"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        check(all(np.isfinite(losses + norms)) and losses[-1] < losses[0],
+              f"{k} slots: losses {losses}, grad norms {norms}")
+        check(int(state["step"]) == GNN_STEPS,
+              f"{k} slots: the state's step")
+        # the host clock around each step, which ends in a synchronize:
+        # the median of the steps after the first
+        step_ms = statistics.median(step_s[1:]) * 1e3
+        n_steps = GNN_STEPS
+        out[k] = dict(
+            step_ms=step_ms, step_s_each=step_s, steps=n_steps,
+            losses=losses, grad_norms=norms,
+            launches=launches, launches_per_step={"k4": per_step[0],
+                                                  "k5": per_step[1]},
+            parity=dict(read, loss_plain=plain[0][0], gate=gate,
+                        plain_widest=widest, runs=GNN_CLOUD),
+            controls={c: dict(r, over_gate={x: r[x] / gate[x] if gate[x]
+                                            else None for x in GNN_STATS},
+                              caught_by=caught[c])
+                      for c, r in controls.items()},
+            slot_s=time.perf_counter() - t_k)
+        print(f"28 {k} slots ({card}): step {step_ms:.3f} ms (host clock to "
+              f"a synchronize, median of steps 2-{GNN_STEPS}; host-bound, no "
+              f"gate), losses "
+              f"{losses}; launches a step K4 {per_step[0]}, K5 {per_step[1]}"
+              f" (counted {launches} over {n_steps} steps); parity {read} "
+              f"over the gate "
+              f"{ {x: read[x] / gate[x] if gate[x] else None for x in GNN_STATS} }"
+              f"; controls over the gate "
+              f"{ {c: v['over_gate'] for c, v in out[k]['controls'].items()} }"
+              f"; {out[k]['slot_s']:.1f} s")
+        del state, cell, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- compressed_psum over 4 slots: the card against the CPU -------------
+    def cpsum(grads: list) -> tuple:
+        res = [{n: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                for n, g in s.items()} for s in grads]
+        first = compressed_psum(grads, res)
+        pay, scales, _ = shared_payloads(grads, first[1])
+        second = compressed_psum(grads, first[1])
+        return first + (pay, scales) + second
+    on_card = cpsum(slot_grads)
+    on_cpu = cpsum([{n: g.cpu() for n, g in s.items()} for s in slot_grads])
+    torch.cuda.synchronize()
+    parts = ("mean", "residual", "payload", "scale", "mean_2", "residual_2")
+    unequal = [(part, j, n) for part, a, b in zip(parts, on_card, on_cpu)
+               for j, (x, y) in enumerate(zip(a, b)) for n in x
+               if not torch.equal(x[n].cpu(), y[n])]
+    leaves = sum(g.numel() for g in slot_grads[0].values())
+    cps_ms = time_ms(torch, lambda: compressed_psum(slot_grads, on_card[1]))
+    print(f"28 compressed_psum at {CPSUM_SLOTS} slots ({card}): the slots' "
+          f"gradients of {len(names)} leaves, {leaves} values each, two "
+          f"error-feedback rounds: card vs CPU bit-equal in "
+          f"{len(parts) * CPSUM_SLOTS * len(names) - len(unequal)} of "
+          f"{len(parts) * CPSUM_SLOTS * len(names)} tensors; {cps_ms:.3f} ms"
+          " a call (host-bound: 4 small ops a leaf and slot)")
+    check(not unequal, f"compressed_psum on the card differs from the CPU "
+          f"in {len(unequal)} tensors: "
+          f"{sorted({(part, n) for part, _, n in unequal})}")
+    del on_card, on_cpu, slot_grads
+
+    # -- K4 and K5 at the sharded path's shape: 4 slots' largest sum --------
+    k = CPSUM_SLOTS
+    per_slot = e_n // k
+    paths = nequip.coupling_paths(cfg.l_max)
+    dim = cfg.d_hidden * (2 * max(p[2] for p in paths) + 1)
+    rows_in = torch.randn((per_slot, dim), device=dev,
+                          generator=torch.Generator(dev).manual_seed(
+                              GNN_SEED))
+    k4_entry, k5_entry = k4_k5_at(
+        torch, dev, rows_in, batch["dst"][:per_slot].contiguous(),
+        host["positions"].shape[0],
+        f"nequip molecule, slot 0 of {k}: an l = 2 message sum")
+    print(f"K4 at the sharded shape ({card}): {k4_entry}")
+    print(f"K5 at the sharded shape ({card}): {k5_entry}")
+    del rows_in
+    total = {"k4": sum(o["launches"]["k4_atomic"] for o in out.values()),
+             "k5": sum(o["launches"]["k5"] for o in out.values())}
+    per_slots = {k: dict(o["launches_per_step"], step_ms=o["step_ms"])
+                 for k, o in out.items()}
+    for key, entry, n in (("segment_reduce_atomic", k4_entry, total["k4"]),
+                          ("embedding_bag", k5_entry, total["k5"])):
+        src = "segment_reduce" if key != "embedding_bag" else key
+        line = {"segment_reduce": 62, "embedding_bag": 44}[src]
+        row = dict(entry, launches=n, per_slots=per_slots)
+        rows.setdefault(key, dict(
+            name=key, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}.cu",
+            replaces=f"src/repro/kernels/{src}/{src}.py:{line}",
+            **{x: v for x, v in row.items() if x != "per_slots"}))[
+                "gnn_sharded"] = row
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 28: {phase_s:.1f} s; K4 launches {total['k4']}, K5 "
+          f"{total['k5']} over the steps at {GNN_SHARDED_SLOTS} slots")
+    return {"gnn_sharded": {"slots": {str(k): o for k, o in out.items()},
+                            "compressed_psum": {"slots": CPSUM_SLOTS,
+                                                "bit_equal": True,
+                                                "ms": cps_ms},
+                            "phase_s": phase_s}}
 
 
 # phase 27: the dry-run, the cost model, the transfer pass and elastic
@@ -4852,11 +5167,14 @@ def launch_analysis_phases(torch, np, dev, rows: dict, card: str) -> dict:
     elastic rescale of a TrainState between the card and the CPU.
     Returns each part's numbers."""
     import gc
+    import io
     import shutil
     import tempfile
 
+    from repro_torch.analysis import __main__ as analysis_cli
     from repro_torch.analysis import transfers
     from repro_torch.analysis.entries import all_entries
+    from repro_torch.analysis.findings import Finding, load_baseline
     from repro_torch.analysis.graph_utils import trace
     from repro_torch.analysis.runner import BUCKETS
     from repro_torch.configs import all_cells, cc_graphs, dcn_v2, get_arch
@@ -5053,6 +5371,31 @@ def launch_analysis_phases(torch, np, dev, rows: dict, card: str) -> dict:
     print(f"27d gin-tu TrainState ({len(want)} leaves, {n_bytes} bytes): "
           "card -> CPU -> card, bit-equal both ways")
     out["elastic"] = {"leaves": len(want), "bytes": n_bytes}
+
+    # -- 27e. the analysis CLI on the card against the CPU's baseline ------
+    report = ROOT / "build" / "analysis_card.json"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_cli.main(["--device", str(dev), "--json",
+                                str(report)])
+    cli_s = time.perf_counter() - t0
+    text = buf.getvalue().strip().splitlines()
+    keys = {Finding(**f).key
+            for f in json.loads(report.read_text())["findings"]}
+    baseline = load_baseline(ROOT / "analysis_baseline_torch.json")
+    new, stale = sorted(keys - baseline), sorted(baseline - keys)
+    print(f"27e python -m repro_torch.analysis --device {dev}: rc {rc} in "
+          f"{cli_s:.1f} s; {text[-1] if text else ''} [{card}]")
+    for line in text:
+        if line.startswith("NEW "):
+            print(f"27e {line}")
+    print(f"27e findings on the card beyond the CPU's baseline: {new}; "
+          f"baseline keys that do not fire on the card: {stale}")
+    check(rc in (0, 1) and rc == int(bool(new)),
+          f"the analysis CLI on the card returned {rc}: {text[-5:]}")
+    out["analysis_cli"] = {"rc": rc, "seconds": cli_s,
+                           "findings": len(keys), "new": new, "stale": stale}
 
     phase_s = time.perf_counter() - t_phase
     print(f"phase 27: {phase_s:.1f} s (dry-run {dry_s:.1f} s) [{card}]")
@@ -5364,7 +5707,7 @@ def cc_phases(torch, np, dev, rows: dict, card: str) -> tuple:
     # round, from torch.profiler
     for name, g in graphs.items():
         split = launch_ms(torch, lambda: cc.solve_pallas(g),
-                          "hook_snapshot_kernel")
+                          "hook_snapshot_kernel", hook_ops.SNAPSHOT)
         nseg = g.plan.num_segments
         check(len(split) == results[name][3],
               f"profile of {name} solve_pallas holds {len(split)} "
@@ -5378,7 +5721,7 @@ def cc_phases(torch, np, dev, rows: dict, card: str) -> tuple:
               f"{max(split[:nseg]):.3f}), cleanup rounds "
               f"{[round(t, 3) for t in split[nseg:]]}")
         split = launch_ms(torch, lambda: cc.solve_static(
-            g, method="pallas_fused"), "cc_fused_kernel")
+            g, method="pallas_fused"), "cc_fused_kernel", cc_ops.KERNEL)
         check(len(split) == results[name][1],
               f"profile of {name} pallas_fused holds {len(split)} cc_fused "
               f"launches, not {results[name][1]}")
@@ -5430,7 +5773,7 @@ KERNEL_ROWS = ("cc_fused", "cc_fused_batched", "hook", "hook_snapshot",
 # 2-5 come along with any group that reuses their graphs)
 GROUPS = ("cc", "recsys", "lm", "front_door", "dynamic", "batched",
           "service", "distributed", "fleet", "mla_moe", "train", "lm_train",
-          "gnn", "launch_analysis")
+          "gnn", "launch_analysis", "gnn_sharded")
 NEEDS_CC = ("front_door", "dynamic", "distributed")
 
 
@@ -5526,6 +5869,9 @@ def main(argv=None) -> int:
     # 27. the dry-run, the cost model, the transfer pass, elastic rescale
     if "launch_analysis" in only:
         e2e.update(launch_analysis_phases(torch, np, dev, rows, card))
+    # 28. NequIP's sharded train step and compressed_psum over slots
+    if "gnn_sharded" in only:
+        e2e.update(gnn_sharded_phases(torch, np, dev, rows, card))
     print("e2e " + json.dumps(e2e))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

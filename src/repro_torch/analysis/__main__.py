@@ -38,12 +38,15 @@ def main(argv=None) -> int:
     ap.add_argument("--entry", action="append", default=None,
                     help="restrict the sweep to entries whose name "
                          "contains this substring (repeatable)")
+    ap.add_argument("--device", default=None,
+                    help="where the entries run (default: CUDA; 'cpu' "
+                         "runs them on the CPU)")
     args = ap.parse_args(argv)
 
     t0 = time.perf_counter()
 
     if args.selftest:
-        failures = selftest()
+        failures = selftest(args.device)
         dt = time.perf_counter() - t0
         if failures:
             for f in failures:
@@ -62,7 +65,7 @@ def main(argv=None) -> int:
             print(f"no entries match {args.entry}", file=sys.stderr)
             return 2
 
-    report = analyze(entries)
+    report = analyze(entries, device=args.device)
     dt = time.perf_counter() - t0
 
     if args.json:

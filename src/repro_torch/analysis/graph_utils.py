@@ -52,6 +52,8 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.graphs.device import resolve_device
+
 HOST_READS = ("item", "tolist", "numpy", "cpu", "to", "__bool__",
               "__int__", "__index__", "__float__", "__array__")
 HOST_PUTS = ("tensor", "as_tensor", "asarray", "from_numpy")
@@ -339,19 +341,20 @@ def _draw(arg, info, rng: np.random.Generator, device: torch.device):
     return torch.as_tensor(vals).to(dtype).to(device)
 
 
-def trace(entry, bucket: tuple, seed: int = 0, device="cpu",
+def trace(entry, bucket: tuple, seed: int = 0, device=None,
           runner=None) -> TracedEntry:
-    """Run ``entry`` once at ``bucket`` = (V, E) on ``device``,
+    """Run ``entry`` once at ``bucket`` = (V, E) on ``device`` (CUDA
+    unless given; raises without CUDA unless ``device="cpu"``),
     recording it (see the module docstring). ``runner(run)``, when
     given, calls the recorded run (a zero-argument function) inside
     whatever it measures it with."""
+    dev = resolve_device(device)
     v, e = bucket
     fn, args, info = entry.build(v, e)
     if len(args) != len(info):
         raise ValueError(f"{entry.name}: {len(args)} arguments, "
                          f"{len(info)} VarInfo")
     rng = np.random.default_rng(seed)
-    dev = torch.device(device)
     real = [_draw(a, i, rng, dev) for a, i in zip(args, info)]
     flat = [ArgRecord(ref=_ref(a)) if isinstance(a, torch.Tensor)
             else ArgRecord(value=a) for a in real]

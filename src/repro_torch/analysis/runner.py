@@ -23,6 +23,7 @@ from repro_torch.analysis import astlint, intrange, padmask, retrace, \
 from repro_torch.analysis.findings import (PASS_IDS, Report,
                                            apply_suppressions, dedupe)
 from repro_torch.analysis.graph_utils import repo_root, trace
+from repro_torch.graphs.device import resolve_device
 
 # (num_nodes, num_edges): the CI tier and the paper's scale tier
 BUCKETS = {"small": (1024, 4096), "scale": (1 << 20, 1 << 22)}
@@ -33,10 +34,12 @@ _RECORD_PASSES = (transfers, intrange, retrace, padmask)
 def analyze(entries: Optional[list] = None, *,
             buckets: Optional[dict] = None,
             root: Optional[Path] = None,
-            run_astlint: bool = True, device="cpu") -> Report:
+            run_astlint: bool = True, device=None) -> Report:
     """Run ``entries`` (default: every registered entry) at every
-    bucket on ``device``, run the pass stack, and return the gated
+    bucket on ``device`` (CUDA unless given; raises without CUDA unless
+    ``device="cpu"``), run the pass stack, and return the gated
     ``Report``."""
+    device = resolve_device(device)
     if entries is None:
         from repro_torch.analysis.entries import all_entries
         entries = all_entries()
@@ -62,10 +65,10 @@ def analyze(entries: Optional[list] = None, *,
                   passes_run=passes)
 
 
-def selftest() -> list[str]:
-    """Run the pass stack over the seeded-bug fixtures; return the list
-    of failures (empty = the analyzer still catches every bug class it
-    was built from)."""
+def selftest(device=None) -> list[str]:
+    """Run the pass stack over the seeded-bug fixtures on ``device`` (as
+    ``analyze``); return the list of failures (empty = the analyzer
+    still catches every bug class it was built from)."""
     from repro_torch.analysis import fixtures
 
     failures: list[str] = []
@@ -75,7 +78,7 @@ def selftest() -> list[str]:
         entry = fixture_by_name[name]
         for bucket_name, bucket in BUCKETS.items():
             rep = analyze([entry], buckets={bucket_name: bucket},
-                          run_astlint=False)
+                          run_astlint=False, device=device)
             hit = any(f.pass_id == pass_id and f.code == code
                       for f in rep.findings)
             must_hit = where == "any" or bucket_name == where
@@ -89,7 +92,8 @@ def selftest() -> list[str]:
                     "bucket — the scale-only asymmetry is broken")
 
     for name in sorted(fixtures.CLEAN):
-        rep = analyze([fixture_by_name[name]], run_astlint=False)
+        rep = analyze([fixture_by_name[name]], run_astlint=False,
+                      device=device)
         if rep.findings:
             failures.append(
                 f"{name}: clean twin produced findings: "

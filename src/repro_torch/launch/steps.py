@@ -38,10 +38,12 @@ moves the inputs to the cell's device and runs there:
 The cache is a device tree (``transformer.init_cache``), updated in
 place.
 
-No shardings: the model cells run on one device, and the train step's
-in-place update stands in for donation. The ``cc`` cell splits its
-edges over a ``launch.mesh.Mesh`` of slots (one slot on the device when
-no mesh is given).
+No shardings for the other model cells: they run on one device, and
+the train step's in-place update stands in for donation. The ``cc``
+cell splits its edges over a ``launch.mesh.Mesh`` of slots, and the
+NequIP train cell its nodes and edges, as the reference's
+``_build_gnn_shardmap`` does (one slot on the device when no mesh is
+given).
 """
 from __future__ import annotations
 
@@ -56,9 +58,10 @@ from repro_torch.core.segmentation import plan_segmentation
 from repro_torch.graphs.device import resolve_device
 from repro_torch.models import recsys
 from repro_torch.models import transformer as T
+from repro_torch.models.gnn import common as C
 from repro_torch.models.gnn import model_of
 from repro_torch.train import train_state
-from repro_torch.train.optimizer import AdamWConfig, adamw
+from repro_torch.train.optimizer import AdamWConfig, adamw, named
 
 
 @dataclasses.dataclass
@@ -157,9 +160,7 @@ def _build_lm(arch_id: str, shape: str, device: torch.device) -> Cell:
 
 
 def _build_gnn(arch_id: str, shape: str, device: torch.device) -> Cell:
-    """A GNN train cell: NequIP too takes this plain step (the
-    reference's ``shard_map`` step over a mesh has no one-device
-    analogue)."""
+    """A GNN train cell but NequIP's (``_build_nequip``)."""
     mod = get_arch(arch_id)
     M = model_of(arch_id)
     cfg = mod.make_config(shape)
@@ -174,6 +175,60 @@ def _build_gnn(arch_id: str, shape: str, device: torch.device) -> Cell:
     state = {"params": params, "opt": {"m": params, "v": params},
              "step": ((), torch.int32)}
     return Cell(arch_id, shape, "train", step, args=(state, specs["batch"]),
+                init_state=lambda model: train_state.create(model, opt))
+
+
+def _build_nequip(shape: str, mesh) -> Cell:
+    """NequIP's train cell over ``mesh``'s ``data`` slots, the port of
+    the reference's ``_build_gnn_shardmap``: nodes and edges sharded
+    (``nequip.shard_batch``), each layer one all-gather of the features
+    and one reduce-scatter of the messages. The state lives on slot 0's
+    device, whose slot trains the state's own parameters; every other
+    slot a replica (``detach``, copied to its device). Each slot's
+    gradient is taken of one copy of the replicated loss, so each is
+    that slot's part of the gradient; their ``psum`` is the
+    single-device gradient (the reference's comes out k times it,
+    ROADMAP reference-side), and the loss is their ``pmean``. Then the
+    same AdamW (lr 1e-3) and update as ``_build_gnn``. On one slot this
+    runs the plain step's ops."""
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import fsdp_axes
+    from repro_torch.models.gnn import nequip
+
+    mod = get_arch("nequip")
+    axes = fsdp_axes()
+    cfg = dataclasses.replace(mod.make_config(shape), dist_axes=axes)
+    slots = mesh.slot_devices(axes)
+    specs = mod.input_specs(shape)
+    params = {n: (s, cfg.dtype) for n, s in nequip.param_shapes(cfg).items()}
+    opt = adamw(AdamWConfig(lr=1e-3))
+
+    def replica(p: torch.Tensor, device: torch.device) -> torch.Tensor:
+        return p.detach().to(device).requires_grad_(True)
+
+    def grads(model, batches: list) -> tuple:
+        names = list(named(model))
+        replicas = [model] + [C.tree_map(lambda p, d=d: replica(p, d), model)
+                              for d in slots[1:]]
+        with torch.enable_grad():
+            losses = nequip.loss_fn(replicas, batches, cfg)
+            local = torch.autograd.grad(losses[0], [
+                t for r in replicas for t in named(r).values()])
+        k, n = len(slots), len(names)
+        summed = [collectives.psum([local[j * n + i] for j in range(k)])[0]
+                  for i in range(n)]
+        return (collectives.pmean([x.detach() for x in losses])[0],
+                dict(zip(names, summed)))
+
+    def step(state, batch):
+        return train_state.apply_gradients(state, opt, *grads(
+            state["params"], nequip.shard_batch(batch, mesh, axes)))
+    step.mesh = mesh
+    step.loss_and_grads = lambda model, batch: grads(
+        model, nequip.shard_batch(batch, mesh, axes))
+    state = {"params": params, "opt": {"m": params, "v": params},
+             "step": ((), torch.int32)}
+    return Cell("nequip", shape, "train", step, args=(state, specs["batch"]),
                 init_state=lambda model: train_state.create(model, opt))
 
 
@@ -215,15 +270,18 @@ def build_cell(arch_id: str, shape: str, *, device=None, mesh=None) -> Cell:
     """The cell of ``(arch_id, shape)`` on ``device`` (CUDA unless
     given; raises without CUDA unless ``device="cpu"``). ``mesh`` (a
     ``launch.mesh.Mesh``) is where the ``cc-adaptive`` cell splits its
-    edges; the model cells take none."""
-    if arch_id == "cc-adaptive":
+    edges and the ``nequip`` cell its nodes and edges (without one, a
+    one-slot mesh on ``device``); the other model cells take none."""
+    if arch_id in ("cc-adaptive", "nequip"):
         if mesh is None:
             from repro_torch.launch.mesh import Mesh
             mesh = Mesh([resolve_device(device)], ("data",))
+        if arch_id == "nequip":
+            return _build_nequip(shape, mesh)
         return _build_cc(shape, mesh)
     if mesh is not None:
         raise ValueError(f"{arch_id} runs on one device; mesh= is for the "
-                         "cc-adaptive cell")
+                         "cc-adaptive and nequip cells")
     device = resolve_device(device)
     family = get_arch(arch_id).FAMILY
     if family == "lm":

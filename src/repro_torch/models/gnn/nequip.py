@@ -31,9 +31,19 @@ C·(2l3+1)]`` rows on the segment-reduce kernel (``common.scatter_sum``),
 and so is the per-graph energy. Edges go in chunks of ``edge_chunk``
 (the last padded with masked edges), each chunk under ``checkpoint``
 when ``cfg.remat``, and each layer too, as the reference's nested
-``jax.checkpoint(nothing_saveable)`` scans do. The reference's
-``dist_axes`` (a ``shard_map`` over a mesh) has no one-device analogue
-and is not ported.
+``jax.checkpoint(nothing_saveable)`` scans do.
+
+With ``cfg.dist_axes`` set, the model runs the reference's ``shard_map``
+mode over a mesh's slots, all from this one process (as the multi-shard
+CC engine does): ``params`` and ``batch`` become lists, one entry a slot
+in ``mesh.slot_devices(cfg.dist_axes)`` order, the batches cut by
+``shard_batch`` (node arrays in k contiguous blocks, edges in k
+contiguous blocks that carry global node ids). The positions are
+all-gathered once; each layer all-gathers the features once, sums each
+slot's edge chunks into all |V| rows, and reduce-scatters the partials
+back to node shards (``launch.collectives``); the energy partials are
+summed. The plain mode is this path on one slot: the same ops, no
+collective.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import collectives
 from repro_torch.models.gnn import common as C
 from repro_torch.models.layers import normal_init
 
@@ -174,7 +185,11 @@ class NequIPConfig:
     remat: bool = True          # edge-chunk remat: [E, C, m] path
                                 # messages are recomputed in backward,
                                 # never stored
-    edge_chunk: int = 1 << 18   # edges per message chunk
+    edge_chunk: int = 1 << 18   # edges per message chunk (a slot's)
+    dist_axes: tuple = ()       # mesh-slot mode: node/edge arrays are
+                                # per-slot; each layer all-gathers feats
+                                # and reduce-scatters messages over the
+                                # slots of these mesh axes
     dtype: torch.dtype = torch.float32
 
 
@@ -252,6 +267,44 @@ def state_from_reference(tree: dict, cfg: NequIPConfig, opt, *,
 
 
 # ==========================================================================
+# Sharding over a mesh's slots
+# ==========================================================================
+
+_EDGE_KEYS = ("src", "dst", "edge_mask")
+
+
+def shard_batch(batch: dict, mesh, axes=("data",)) -> list[dict]:
+    """``batch`` cut over the slots of ``mesh``'s ``axes``, as the
+    reference's ``_build_gnn_shardmap`` specs it: the edge arrays
+    (``src``, ``dst``, ``edge_mask``) in k contiguous blocks that keep
+    their global node ids, every other array with as many rows as
+    ``positions`` (positions, species, graph ids, node mask) in k
+    contiguous blocks, the rest (the per-graph energies) whole on every
+    slot. An ``edge_mask`` is cut with the edges (the reference's specs
+    would replicate it, and its forward could not then apply it). Each
+    slot's arrays go to its device; host arrays are taken as tensors. A
+    row count that does not divide by k is refused, as ``shard_map``
+    refuses it (``ValueError``)."""
+    devices = mesh.slot_devices(axes)
+    k = len(devices)
+    n_nodes = batch["positions"].shape[0]
+    out = [{} for _ in devices]
+    for key, x in batch.items():
+        x = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x))
+        split = key in _EDGE_KEYS or (x.dim() and x.shape[0] == n_nodes)
+        if split and x.shape[0] % k:
+            raise ValueError(
+                f"batch[{key!r}] of shape {tuple(x.shape)} maps axis 0 (of "
+                f"size {x.shape[0]}) to mesh axes {tuple(axes)} (of size "
+                f"{k}), but {k} does not evenly divide {x.shape[0]}")
+        blocks = x.split(x.shape[0] // k) if split and k > 1 else [x] * k
+        for slot, b, d in zip(out, blocks, devices):
+            slot[key] = b.to(d)
+    return out
+
+
+# ==========================================================================
 # Forward
 # ==========================================================================
 
@@ -277,13 +330,13 @@ def _chunk_messages(lp: dict, cfg: NequIPConfig, tables: dict, feats: list,
     return msgs
 
 
-def _interaction(lp: dict, cfg: NequIPConfig, feats: list, sh: list,
-                 rbf: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                 edge_mask: torch.Tensor) -> list:
-    """One NequIP convolution + self-interaction + gate. Messages are
-    computed per edge chunk (under ``checkpoint`` when ``cfg.remat``):
-    the [E, C, m] per-path message tensors exist only chunk-locally,
-    forward and backward."""
+def _messages(lp: dict, cfg: NequIPConfig, feats: list, sh: list,
+              rbf: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+              edge_mask: torch.Tensor) -> list:
+    """One slot's messages over its edges, summed into every row of
+    ``feats`` (all |V| nodes): computed per edge chunk (under
+    ``checkpoint`` when ``cfg.remat``), so the [E, C, m] per-path
+    message tensors exist only chunk-locally, forward and backward."""
     n_l, c = cfg.l_max + 1, cfg.d_hidden
     v, e = feats[0].shape[0], src.shape[0]
     tables = gaunt_tables(cfg.l_max, src.device)
@@ -312,11 +365,16 @@ def _interaction(lp: dict, cfg: NequIPConfig, feats: list, sh: list,
         else:
             part = _chunk_messages(lp, cfg, tables, feats, v, *xs)
         msgs = [m + p for m, p in zip(msgs, part)]
+    return msgs
 
-    # self-interaction (channel mix per degree) + residual
+
+def _update(lp: dict, cfg: NequIPConfig, feats: list, msgs: list) -> list:
+    """Self-interaction (channel mix per degree) + residual, then the
+    gate nonlinearity: SiLU on scalars, l>0 scaled by sigmoid(gates)."""
+    n_l, c = cfg.l_max + 1, cfg.d_hidden
+    v = feats[0].shape[0]
     out = [feats[l] + torch.einsum("vcm,cd->vdm", msgs[l], lp["self"][l])
            for l in range(n_l)]
-    # gate nonlinearity: SiLU on scalars; l>0 scaled by sigmoid(gates)
     scalars = out[0][..., 0]                                  # [V, C]
     gates = torch.sigmoid(scalars @ lp["gate_w"] + lp["gate_b"])
     gates = gates.reshape(v, n_l - 1, c)
@@ -326,62 +384,118 @@ def _interaction(lp: dict, cfg: NequIPConfig, feats: list, sh: list,
     return gated
 
 
-def _layer(lp: dict, cfg: NequIPConfig, sh: list, rbf, src, dst, edge_mask,
-           *feats) -> tuple:
-    return tuple(_interaction(lp, cfg, list(feats), sh, rbf, src, dst,
-                              edge_mask))
+def _layer(lps: list, cfg: NequIPConfig, geometry: list, feats: list
+           ) -> list:
+    """One NequIP convolution + self-interaction + gate on every slot:
+    ``lps``, ``geometry`` (each slot's sh, rbf, src, dst, edge mask) and
+    ``feats`` (each slot's node shard, a list by degree) one a slot. The
+    full node features are gathered once; each slot's edge chunks sum
+    into all |V| rows, and the partials reduce-scatter back to node
+    shards (on one slot both are no-ops)."""
+    n_l, k = cfg.l_max + 1, len(feats)
+    full = [collectives.all_gather([f[l] for f in feats])
+            for l in range(n_l)]
+    partial = [_messages(lps[j], cfg, [full[l][j] for l in range(n_l)],
+                         *geometry[j]) for j in range(k)]
+    msgs = [collectives.psum_scatter([p[l] for p in partial])
+            for l in range(n_l)]
+    return [_update(lps[j], cfg, feats[j], [msgs[l][j] for l in range(n_l)])
+            for j in range(k)]
 
 
-def forward(params: dict, batch: dict, cfg: NequIPConfig) -> torch.Tensor:
-    """batch: positions [V,3], species [V], src/dst [E], graph_ids [V],
-    energy [G] (its length is the graph count; without it, the largest
-    graph id + 1). Returns per-graph energies [G]."""
-    pos = batch["positions"].to(cfg.dtype)
-    src, dst = batch["src"], batch["dst"]
-    v = pos.shape[0]
-    num_graphs = batch["energy"].shape[0] if "energy" in batch else \
-        int(batch["graph_ids"].max()) + 1
-
-    vec = pos[src] - pos[dst]                                 # [E, 3]
-    r = torch.sqrt(torch.sum(vec * vec, dim=-1) + 1e-18)
-    unit = vec / torch.clamp(r, min=1e-9)[:, None]
-    edge_mask = ((r > 0) & (r < cfg.cutoff)).to(cfg.dtype)
-    if "edge_mask" in batch:
-        edge_mask = edge_mask * batch["edge_mask"].to(cfg.dtype)
-    sh = spherical_harmonics(unit, cfg.l_max)
-    rbf = bessel_basis(r, cfg.n_rbf, cfg.cutoff)
-
+def _forward_slots(params: list, batches: list, cfg: NequIPConfig
+                   ) -> list:
+    """Per-graph energies [G] on every slot: the psum of the slots'
+    partial energies."""
+    b0 = batches[0]
+    num_graphs = b0["energy"].shape[0] if "energy" in b0 else \
+        max(int(b["graph_ids"].max()) for b in batches) + 1
+    pos = [b["positions"].to(cfg.dtype) for b in batches]
+    # node arrays are per-slot; edges carry GLOBAL node ids
+    pos_full = collectives.all_gather(pos)
+    geometry, feats = [], []
     c = cfg.d_hidden
-    feats = [params["embed"][batch["species"].long()][..., None]]
-    for l in range(1, cfg.l_max + 1):
-        feats.append(torch.zeros((v, c, 2 * l + 1), dtype=cfg.dtype,
-                                 device=pos.device))
+    for j, (p, b) in enumerate(zip(params, batches)):
+        src, dst = b["src"], b["dst"]
+        vec = pos_full[j][src] - pos_full[j][dst]             # [E, 3]
+        r = torch.sqrt(torch.sum(vec * vec, dim=-1) + 1e-18)
+        unit = vec / torch.clamp(r, min=1e-9)[:, None]
+        edge_mask = ((r > 0) & (r < cfg.cutoff)).to(cfg.dtype)
+        if "edge_mask" in b:
+            edge_mask = edge_mask * b["edge_mask"].to(cfg.dtype)
+        sh = spherical_harmonics(unit, cfg.l_max)
+        rbf = bessel_basis(r, cfg.n_rbf, cfg.cutoff)
+        geometry.append((sh, rbf, src, dst, edge_mask))
+        v = pos[j].shape[0]
+        f = [p["embed"][b["species"].long()][..., None]]
+        for l in range(1, cfg.l_max + 1):
+            f.append(torch.zeros((v, c, 2 * l + 1), dtype=cfg.dtype,
+                                 device=pos[j].device))
+        feats.append(f)
     for i in range(cfg.n_layers):
-        lp = C.tree_map(lambda t: t[i], params["layers"])
-        args = (lp, cfg, sh, rbf, src, dst, edge_mask, *feats)
+        lps = [C.tree_map(lambda t: t[i], p["layers"]) for p in params]
+        args = (lps, cfg, geometry, feats)
         feats = checkpoint(_layer, *args, use_reentrant=False) \
             if cfg.remat else _layer(*args)
 
-    # invariant readout: per-atom energy -> per-graph sum
-    s = feats[0][..., 0]
-    e_atom = (F.silu(s @ params["head"]["w1"] + params["head"]["b1"])
-              @ params["head"]["w2"])[:, 0]
-    if "node_mask" in batch:
-        e_atom = e_atom * batch["node_mask"].to(e_atom.dtype)
-    return C.scatter_sum(e_atom, batch["graph_ids"], num_graphs)
+    # invariant readout: per-atom energy -> per-graph sum, each slot's
+    # partial over its node shard
+    partial = []
+    for p, b, f in zip(params, batches, feats):
+        s = f[0][..., 0]
+        e_atom = (F.silu(s @ p["head"]["w1"] + p["head"]["b1"])
+                  @ p["head"]["w2"])[:, 0]
+        if "node_mask" in b:
+            e_atom = e_atom * b["node_mask"].to(e_atom.dtype)
+        partial.append(C.scatter_sum(e_atom, b["graph_ids"], num_graphs))
+    return collectives.psum(partial)
 
 
-def forces(params: dict, batch: dict, cfg: NequIPConfig) -> torch.Tensor:
-    """Exact conservative forces F = -∂E_total/∂positions."""
-    pos = batch["positions"].to(cfg.dtype).detach().requires_grad_(True)
+def _slots(params, batch, cfg: NequIPConfig) -> tuple:
+    """(params, batches) one a slot: the plain mode is one slot; with
+    ``dist_axes`` the batches are a list and ``params`` a list of
+    per-slot trees, or one tree every slot reads."""
+    if not cfg.dist_axes:
+        return [params], [batch]
+    batches = list(batch)
+    if isinstance(params, dict):
+        return [params] * len(batches), batches
+    return list(params), batches
+
+
+def forward(params: dict, batch: dict, cfg: NequIPConfig):
+    """batch: positions [V,3], species [V], src/dst [E], graph_ids [V],
+    energy [G] (its length is the graph count; without it, the largest
+    graph id + 1). Returns per-graph energies [G]. With
+    ``cfg.dist_axes``: ``batch`` a list of slot batches
+    (``shard_batch``), ``params`` one tree or one a slot; returns the
+    energies on every slot, a list."""
+    out = _forward_slots(*_slots(params, batch, cfg), cfg)
+    return out if cfg.dist_axes else out[0]
+
+
+def forces(params: dict, batch: dict, cfg: NequIPConfig):
+    """Exact conservative forces F = -∂E_total/∂positions; with
+    ``cfg.dist_axes``, each slot's node shard of them, a list. Every slot
+    holds the summed energies, so E_total is read from slot 0's copy:
+    each position's gradient is counted once."""
+    ps, bs = _slots(params, batch, cfg)
+    pos = [b["positions"].to(cfg.dtype).detach().requires_grad_(True)
+           for b in bs]
     with torch.enable_grad():
-        e_total = forward(params, {**batch, "positions": pos}, cfg).sum()
-        (grad,) = torch.autograd.grad(e_total, pos)
-    return -grad
+        energy = _forward_slots(ps, [{**b, "positions": p}
+                                     for b, p in zip(bs, pos)], cfg)
+        grads = torch.autograd.grad(energy[0].sum(), pos)
+    out = [-g for g in grads]
+    return out if cfg.dist_axes else out[0]
 
 
-def loss_fn(params: dict, batch: dict, cfg: NequIPConfig) -> torch.Tensor:
-    """Energy MSE (per graph)."""
-    pred = forward(params, batch, cfg)
-    err = pred - batch["energy"].to(pred.dtype)
-    return torch.mean(err * err)
+def loss_fn(params: dict, batch: dict, cfg: NequIPConfig):
+    """Energy MSE (per graph); with ``cfg.dist_axes``, every slot's
+    (equal) loss, a list."""
+    ps, bs = _slots(params, batch, cfg)
+    out = []
+    for pred, b in zip(_forward_slots(ps, bs, cfg), bs):
+        err = pred - b["energy"].to(pred.dtype)
+        out.append(torch.mean(err * err))
+    return out if cfg.dist_axes else out[0]

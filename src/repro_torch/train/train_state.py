@@ -88,14 +88,23 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
             loss = l_sum / accum_steps
             grads = {n: (g_sum[n] / accum_steps).to(p.dtype)
                      for n, p in params.items()}
-        with torch.no_grad(), torch.profiler.record_function("optimizer"):
-            updates, state["opt"], gnorm = opt.update(
-                grads, state["opt"], params, state["step"])
-            apply_updates(params, updates)
-            state["step"] += 1
-        return state, {"loss": loss.float(), "grad_norm": gnorm}
+        return apply_gradients(state, opt, loss, grads)
 
     return step
+
+
+def apply_gradients(state: dict, opt: Optimizer, loss: torch.Tensor,
+                    grads: dict):
+    """The update of a step: ``opt`` on ``grads`` (by parameter name),
+    the parameters and ``step`` written in place, under the profiler
+    range ``optimizer``. Returns ``(state, {"loss", "grad_norm"})``."""
+    params = named(state["params"])
+    with torch.no_grad(), torch.profiler.record_function("optimizer"):
+        updates, state["opt"], gnorm = opt.update(
+            grads, state["opt"], params, state["step"])
+        apply_updates(params, updates)
+        state["step"] += 1
+    return state, {"loss": loss.float(), "grad_norm": gnorm}
 
 
 def param_count(state: dict) -> int:

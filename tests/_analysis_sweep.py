@@ -48,7 +48,7 @@ def check_group_is_clean(group: str) -> None:
     of the contracts but transfer-freedom broken."""
     entries = group_entries(group)
     assert entries
-    rep = analyze(entries, run_astlint=False)
+    rep = analyze(entries, run_astlint=False, device="cpu")
     baseline = load_baseline(repo_root() / "analysis_baseline_torch.json")
     new = rep.new_vs(baseline)
     assert not new, "NEW findings:\n" + "\n".join(f.render() for f in new)

@@ -47,7 +47,8 @@ def test_fixture_tables_match_the_reference_and_the_registry():
 def test_every_expected_fixture_fires_at_its_bucket(name):
     pass_id, code, where = EXPECTED[name]
     buckets = SCALE if where == "scale" else SMALL
-    rep = analyze([_fixture(name)], buckets=buckets, run_astlint=False)
+    rep = analyze([_fixture(name)], buckets=buckets, run_astlint=False,
+                  device="cpu")
     assert (pass_id, code) in _codes(rep), [f.render() for f in rep.findings]
     hit = next(f for f in rep.findings if f.code == code)
     assert hit.severity == "error" and hit.entry == name
@@ -55,7 +56,7 @@ def test_every_expected_fixture_fires_at_its_bucket(name):
 
 @pytest.mark.parametrize("name", sorted(CLEAN))
 def test_every_clean_twin_is_quiet_at_both_buckets(name):
-    rep = analyze([_fixture(name)], run_astlint=False)
+    rep = analyze([_fixture(name)], run_astlint=False, device="cpu")
     assert not rep.findings, [f.render() for f in rep.findings]
 
 
@@ -63,8 +64,10 @@ def test_int32_edge_key_flags_at_scale_only_as_the_references_does():
     """Quiet at the reference's small bucket (1024, 4096), flagged at its
     scale bucket (2^20, 2^22), anchored at the packed key's line."""
     entry = _fixture("fixture.int32_edge_key")
-    at_small = analyze([entry], buckets=SMALL, run_astlint=False)
-    at_scale = analyze([entry], buckets=SCALE, run_astlint=False)
+    at_small = analyze([entry], buckets=SMALL, run_astlint=False,
+                       device="cpu")
+    at_scale = analyze([entry], buckets=SCALE, run_astlint=False,
+                       device="cpu")
     assert ("int32", "mul-overflow") not in _codes(at_small)
     assert ("int32", "mul-overflow") in _codes(at_scale)
     f = next(f for f in at_scale.findings if f.code == "mul-overflow")
@@ -75,7 +78,7 @@ def test_int32_edge_key_flags_at_scale_only_as_the_references_does():
 
 
 def test_selftest_is_green():
-    assert selftest() == []
+    assert selftest(device="cpu") == []
 
 
 def test_recorder_sees_reads_dynamic_shapes_and_host_constants():
@@ -93,11 +96,11 @@ def test_recorder_sees_reads_dynamic_shapes_and_host_constants():
                      e), [VarInfo(range=(0, v - 1)),
                           VarInfo(range=(0, e), mask=True)])
     entry = TraceEntry("probe", build, _TF)
-    t = trace(entry, BUCKETS["small"])
+    t = trace(entry, BUCKETS["small"], device="cpu")
     assert t.failure is None
     assert [h.method for h in t.record.host if h.kind == "read"] == \
         ["__int__"]
-    rep = analyze([entry], buckets=SMALL, run_astlint=False)
+    rep = analyze([entry], buckets=SMALL, run_astlint=False, device="cpu")
     codes = _codes(rep)
     assert {("transfer", "host-read-__int__"),
             ("transfer", "dynamic-shape-index"),
@@ -115,7 +118,7 @@ def test_a_failing_entry_is_reported():
             raise ValueError("boom")
         return fn, (torch.empty((8,), device="meta"),), [VarInfo()]
     rep = analyze([TraceEntry("broken", build, _TF)], buckets=SMALL,
-                  run_astlint=False)
+                  run_astlint=False, device="cpu")
     assert ("transfer", "trace-failed") in _codes(rep)
     assert "boom" in rep.findings[0].message
 
@@ -146,7 +149,7 @@ def test_suppression_pragma_round_trip(tmp_path):
 
 def test_baseline_round_trip_and_the_reference_reads_it(tmp_path):
     rep = analyze([_fixture("fixture.unmasked_padded_sum")],
-                  buckets=SMALL, run_astlint=False)
+                  buckets=SMALL, run_astlint=False, device="cpu")
     assert rep.findings
     path = tmp_path / "baseline.json"
     write_baseline(path, rep)

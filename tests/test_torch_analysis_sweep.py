@@ -49,7 +49,7 @@ def test_cli_sweep_exits_zero_with_the_audited_suppressions(tmp_path):
     facade-bypass imports suppressed by their pragmas."""
     out = tmp_path / "report.json"
     assert cli.main(["--entry", "queries.", "--entry", "fleet.",
-                     "--json", str(out)]) == 0
+                     "--json", str(out), "--device", "cpu"]) == 0
     report = json.loads(out.read_text())
     assert len(report["entries"]) == 7
     assert set(report["passes"]) == {"transfer", "int32", "retrace",
@@ -62,7 +62,7 @@ def test_cli_sweep_exits_zero_with_the_audited_suppressions(tmp_path):
 
 
 def test_cli_selftest_exits_zero(capsys):
-    assert cli.main(["--selftest"]) == 0
+    assert cli.main(["--selftest", "--device", "cpu"]) == 0
     assert "all seeded fixtures caught" in capsys.readouterr().out
 
 
@@ -78,8 +78,9 @@ def test_cli_gates_on_new_findings(tmp_path, capsys, monkeypatch):
         return orig([bad], buckets={"small": (1024, 4096)}, **kw)
     monkeypatch.setattr(cli, "analyze", patched)
     baseline = tmp_path / "b.json"
-    assert cli.main(["--baseline", str(baseline)]) == 1
+    assert cli.main(["--baseline", str(baseline), "--device", "cpu"]) == 1
     assert "NEW error[padmask]" in capsys.readouterr().out
-    assert cli.main(["--baseline", str(baseline), "--write-baseline"]) == 0
-    assert cli.main(["--baseline", str(baseline)]) == 0
-    assert cli.main(["--entry", "no-such-entry"]) == 2
+    assert cli.main(["--baseline", str(baseline), "--write-baseline",
+                     "--device", "cpu"]) == 0
+    assert cli.main(["--baseline", str(baseline), "--device", "cpu"]) == 0
+    assert cli.main(["--entry", "no-such-entry", "--device", "cpu"]) == 2

@@ -1548,3 +1548,65 @@ def test_gnn_train_step_on_card_matches_the_plain_route(dev, arch,
     assert np.isfinite(float(metrics["loss"]))
     assert (sr_ops.ATOMIC.launches, eb_ops.KERNEL.launches) == \
         GNN_LAUNCHES[arch]
+
+
+# --------------------------------------------------------------------------
+# NequIP's sharded step and compressed_psum over slots of the card
+# --------------------------------------------------------------------------
+
+def test_compressed_psum_on_card_equals_cpu(dev):
+    """Four slots of the card against the same call on the CPU: means,
+    new residuals, payloads and scales bit-equal (every op correctly
+    rounded; the scale divides by a tensor, since CUDA divides by a
+    Python scalar through its rounded reciprocal)."""
+    from repro_torch.train.compression import (compressed_psum,
+                                               shared_payloads)
+    rng = np.random.default_rng(27)
+    host = [{n: torch.from_numpy((rng.standard_normal(s) * 10.0 ** rng
+                                  .integers(-3, 3)).astype(np.float32))
+             for n, s in (("a", (1000,)), ("b", (64, 33)), ("c", (7,)))}
+            for _ in range(4)]
+    res = [{n: torch.zeros_like(g) for n, g in h.items()} for h in host]
+
+    def call(grads, residual):
+        return compressed_psum(grads, residual) + shared_payloads(
+            grads, residual)[:2]
+    on_card = call([{n: g.to(dev) for n, g in h.items()} for h in host],
+                   [{n: r.to(dev) for n, r in h.items()} for h in res])
+    on_cpu = call(host, res)
+    for a, b in zip(on_card, on_cpu):
+        for x, y in zip(a, b):
+            assert x.keys() == y.keys()
+            for n in x:
+                assert torch.equal(x[n].cpu(), y[n]), n
+
+
+def test_nequip_sharded_step_on_card(dev, monkeypatch):
+    """The smoke config's train step over 2 slots of the card against
+    the one-slot step: each slot's edge chunks and partial energy on K4
+    and their gradients on K5 (twice the one-slot launches), the loss
+    equal to 1e-6 and the gradient within 1e-5 of the leaf's largest."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import _gnn_batch
+    from repro_torch.models.gnn import nequip
+    mod = get_arch("nequip")
+    cfg = mod.make_smoke_config()
+    monkeypatch.setattr(mod, "make_config", lambda shape=None: cfg)
+    host = _gnn_batch("nequip", cfg, 0, 0)
+    params = nequip.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                         device=dev, requires_grad=True)
+    out = {}
+    for k in (1, 2):
+        cell = steps.build_cell("nequip", "molecule", mesh=make_mesh(k))
+        sr_ops.KERNEL.launches = eb_ops.KERNEL.launches = 0
+        out[k] = cell.step.loss_and_grads(params, host)
+        torch.cuda.synchronize()
+        assert (sr_ops.ATOMIC.launches, eb_ops.KERNEL.launches) == tuple(
+            k * n for n in GNN_LAUNCHES["nequip"])
+    assert float(out[2][0]) == pytest.approx(float(out[1][0]), rel=1e-6)
+    for n, g in out[2][1].items():
+        want = out[1][1][n]
+        assert float((g - want).abs().max()) <= 1e-5 * float(
+            want.abs().max()), n
