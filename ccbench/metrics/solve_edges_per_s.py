@@ -1,0 +1,8 @@
+"""Edges of every solve completed in the window over the window's
+seconds, in millions a second (host clock)."""
+
+
+def read(ctx):
+    if not ctx["iterations"]:
+        return None
+    return ctx["work"] / ctx["window_s"] / 1e6
