@@ -134,8 +134,10 @@ class Solver:
                                  "num_nodes")
             g, n = None, int(num_nodes)
         else:
-            g = as_device_graph(graph, num_nodes,
-                                num_segments=num_segments, device=device)
+            with obs.span("solver.open", tenant=name):
+                g = as_device_graph(graph, num_nodes,
+                                    num_segments=num_segments,
+                                    device=device)
             n = g.num_nodes
         return cls(g, n, lift_steps=lift_steps, num_segments=num_segments,
                    mesh=mesh, axis_names=axis_names,
@@ -174,8 +176,9 @@ class Solver:
         registry entry; a named ``method`` maps to its same-named
         backend; "auto" asks the policy (autotune cache, then the
         heuristic). Passing both a named method and a backend raises."""
-        plan = self._build_plan(method, backend=backend,
-                                num_segments=num_segments, **opts)
+        with obs.span("solver.plan", tenant=self.name):
+            plan = self._build_plan(method, backend=backend,
+                                    num_segments=num_segments, **opts)
         self.last_plan = plan
         return plan
 

@@ -28,7 +28,11 @@ recompute and the no-op is a host branch here, on whether the batch
 retired anything (or hit the forest); the no-op bills zero work, as the
 reference's does, and the eager loops read their conditions back from
 the device. ``sync_rounds`` still bills the reference's one device
-program per tick.
+program per tick. The reads are counted by ``obs.read`` (``read.drain``
+and ``read.work`` for the two drains of the work queue, ``delete_hits``
+and ``tree_hits`` for the hit classifications, the rest in
+``rounds``), and a delete's phases run under the spans
+``dyn.tombstone``, ``dyn.scoped`` and ``dyn.forest.rebuild``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -43,6 +47,7 @@ from repro_torch.core.segmentation import (adaptive_num_segments,
                                            plan_segmentation)
 from repro_torch.graphs.device import (DeviceGraph, EdgeLog, resolve_device,
                                        validate_edge_bounds)
+from repro_torch.obs import trace as obs
 
 _DRAIN_EVERY = 256   # fold pending per-batch work into host ints
 SCAN_METHODS = ("jnp", "pallas_fused")
@@ -114,10 +119,13 @@ class IncrementalCC:
         """Label version as an int32 0-d device tensor (no sync)."""
         return self._version
 
-    def _drain_work(self) -> None:
+    def _drain_work(self, site: str) -> None:
+        """Fold the queued counters into host ints: one read, counted
+        under ``read.<site>``."""
         if self._work_pending:
             stacked = torch.stack([torch.stack(list(w))
-                                   for w in self._work_pending]).cpu()
+                                   for w in self._work_pending])
+            stacked = obs.read(site, lambda: stacked.cpu())
             for k, col in zip(WorkCounters._fields, stacked.T.tolist()):
                 self._work_host[k] += sum(col)
         self._work_pending.clear()
@@ -131,12 +139,12 @@ class IncrementalCC:
             for k, v in work.items():
                 self._work_host[k] += int(v)
         if len(self._work_pending) >= _DRAIN_EVERY:
-            self._drain_work()           # rare amortized sync point
+            self._drain_work("drain")    # rare amortized sync point
 
     @property
     def work(self) -> dict:
         """Accumulated work counters as host ints (syncs on access)."""
-        self._drain_work()
+        self._drain_work("work")
         return dict(self._work_host)
 
     def _absorb(self, edges: torch.Tensor, true: int) -> None:
@@ -365,8 +373,10 @@ class DynamicCC(IncrementalCC):
             return self._pi
         edges, pi = self.log.edges, self._pi
         v0, true_count = self._version, dels.true_edges_device()
-        killed = self._tombstone(dels)
-        hit = killed.nonzero().squeeze(1)
+        with obs.span("dyn.tombstone"):
+            killed = self._tombstone(dels)
+            hit = obs.read("delete_hits",
+                           lambda: killed.nonzero()).squeeze(1)
         if hit.shape[0]:
             # both endpoints of an alive edge share a label, so marking
             # pi[u] covers pi[v]
@@ -380,9 +390,10 @@ class DynamicCC(IncrementalCC):
             plan = plan_segmentation(
                 self.log.capacity, self.num_nodes,
                 adaptive_num_segments(self.log.capacity, self.num_nodes))
-            pi1, work = rounds.scoped_rounds(
-                pi, edges, edge_aff, in_aff, plan, ops,
-                WorkCounters.zeros(self.device))
+            with obs.span("dyn.scoped"):
+                pi1, work = rounds.scoped_rounds(
+                    pi, edges, edge_aff, in_aff, plan, ops,
+                    WorkCounters.zeros(self.device))
             self._version = _bump(self._version, pi1, pi)
             self._pi = pi1
         else:
@@ -403,29 +414,29 @@ class DynamicCC(IncrementalCC):
         into ``dynamic.deletes.rebuild``."""
         if self._forest_valid:
             return
-        from repro_torch.obs import trace as obs
-        dev, n = self.device, self.num_nodes
-        edges, alive = self.log.edges, self.log.alive
-        e = edges.shape[0]
-        packed, pids, true = rounds.pack_edge_rows(
-            edges, torch.arange(e, dtype=torch.int32, device=dev), alive)
-        plan = plan_segmentation(e, n, adaptive_num_segments(e, n))
-        segments = rounds.pad_and_segment(packed, plan)
-        pad = plan.padded_edges - e
-        seg_ids = pids if pad <= 0 else torch.cat(
-            [pids, pids.new_full((pad,), -1)])
-        seg_ids = seg_ids.reshape(plan.num_segments, plan.segment_size)
-        counts = rounds.segment_true_counts(true, plan)
-        pi, parents, eidx, work = rounds.forest_segment_scan_ids(
-            torch.arange(n, dtype=torch.int32, device=dev),
-            rounds.empty_forest(n, dev), rounds.empty_forest_idx(n, dev),
-            segments, seg_ids, WorkCounters.zeros(dev), counts,
-            lift_steps=self.lift_steps)
-        pi, parents, eidx, work = rounds.forest_cleanup_rounds_ids(
-            pi, parents, eidx, packed[:true], pids[:true], work,
-            true_edges=true, lift_steps=self.lift_steps)
-        self._pi, self._parents, self._parent_eidx = pi, parents, eidx
-        self._queue_work(work.add(sync_rounds=1))
+        with obs.span("dyn.forest.rebuild"):
+            dev, n = self.device, self.num_nodes
+            edges, alive = self.log.edges, self.log.alive
+            e = edges.shape[0]
+            packed, pids, true = rounds.pack_edge_rows(
+                edges, torch.arange(e, dtype=torch.int32, device=dev), alive)
+            plan = plan_segmentation(e, n, adaptive_num_segments(e, n))
+            segments = rounds.pad_and_segment(packed, plan)
+            pad = plan.padded_edges - e
+            seg_ids = pids if pad <= 0 else torch.cat(
+                [pids, pids.new_full((pad,), -1)])
+            seg_ids = seg_ids.reshape(plan.num_segments, plan.segment_size)
+            counts = rounds.segment_true_counts(true, plan)
+            pi, parents, eidx, work = rounds.forest_segment_scan_ids(
+                torch.arange(n, dtype=torch.int32, device=dev),
+                rounds.empty_forest(n, dev), rounds.empty_forest_idx(n, dev),
+                segments, seg_ids, WorkCounters.zeros(dev), counts,
+                lift_steps=self.lift_steps)
+            pi, parents, eidx, work = rounds.forest_cleanup_rounds_ids(
+                pi, parents, eidx, packed[:true], pids[:true], work,
+                true_edges=true, lift_steps=self.lift_steps)
+            self._pi, self._parents, self._parent_eidx = pi, parents, eidx
+            self._queue_work(work.add(sync_rounds=1))
         self._forest_valid = True
         self.forest_rebuilds += 1
         obs.count("dynamic.deletes.rebuild")
@@ -443,11 +454,13 @@ class DynamicCC(IncrementalCC):
         self.ensure_forest()
         edges, pi = self.log.edges, self._pi
         v0, true_count = self._version, dels.true_edges_device()
-        killed = self._tombstone(dels)
-        has_parent = self._parent_eidx >= 0
-        safe = self._parent_eidx.clamp(min=0).long()
-        tree_hit = has_parent & killed[safe]
-        hit = tree_hit.nonzero().squeeze(1)
+        with obs.span("dyn.tombstone"):
+            killed = self._tombstone(dels)
+            has_parent = self._parent_eidx >= 0
+            safe = self._parent_eidx.clamp(min=0).long()
+            tree_hit = has_parent & killed[safe]
+            hit = obs.read("tree_hits",
+                           lambda: tree_hit.nonzero()).squeeze(1)
         any_hit = hit.shape[0] > 0
         if any_hit:
             in_aff = self._affected(pi, pi[hit])
@@ -514,7 +527,6 @@ class DynamicCC(IncrementalCC):
                   "tree_scoped": int(vals[1]),
                   "rebuild": self.forest_rebuilds}
         if flush_obs:
-            from repro_torch.obs import trace as obs
             for k in ("nontree_shortcircuit", "tree_scoped"):
                 delta = counts[k] - self._routes_flushed[k]
                 if delta:

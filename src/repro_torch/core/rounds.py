@@ -15,7 +15,16 @@ a loop condition is read back from the device (``.item()``-style) once
 per iteration. ``WorkCounters`` still bill exactly what the reference
 bills — ``sync_rounds`` counts the reference's host-equivalent
 synchronisation points, not the host reads this eager loop makes — so
-the counters of both packages compare equal field by field.
+the counters of both packages compare equal field by field. The reads
+themselves are counted by ``obs.read`` under ``read.<site>``: ``sweep``
+(a compress sweep's changed flag), ``consistent`` (the cleanup loop's
+check), ``scan_counts``, ``scoped_rows``, ``scoped_counts``,
+``forest_counts`` and ``pack`` (the row counts and ``nonzero`` packs
+the host sizes loops and buffers by). The Fig. 4 pipeline runs under
+the spans ``cc.scan`` and ``cc.cleanup``, the tree-aware delete under
+``dyn.forest.skeleton`` and ``dyn.forest.replace``; on torch ops each
+ends on a read, so its host time is the phase's wall time (a fused
+scan is one launch that reads nothing back).
 
 Work accounting bills *true* edge counts: padded ``(0, 0)`` no-op edges
 are never counted. Counters are 0-d int32 tensors on the graph's device
@@ -29,6 +38,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core.segmentation import SegmentationPlan
+from repro_torch.obs import trace as obs
 
 MAX_ROUNDS = 64          # outer hook-round fuel
 
@@ -117,7 +127,7 @@ def jacobi_sweeps(pi: torch.Tensor, fuel: int) -> tuple[torch.Tensor, int]:
     changed = True
     while changed and sweeps < fuel:
         nxt = pi[pi]
-        changed = bool((nxt != pi).any())
+        changed = obs.read("sweep", lambda: bool((nxt != pi).any()))
         pi = nxt
         sweeps += 1
     return pi, sweeps
@@ -148,7 +158,8 @@ def compress(pi: torch.Tensor, work: WorkCounters,
 
 def edges_consistent(pi: torch.Tensor, edges: torch.Tensor) -> bool:
     """True iff every edge has both endpoints under the same label."""
-    return bool((pi[edges[..., 0]] == pi[edges[..., 1]]).all())
+    return obs.read("consistent", lambda: bool(
+        (pi[edges[..., 0]] == pi[edges[..., 1]]).all()))
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +288,8 @@ def segment_scan(pi: torch.Tensor, segments: torch.Tensor, ops: RoundOps,
                                  dtype=torch.int32, device=segments.device)
     if ops.scan is not None:
         return ops.scan(pi, segments, true_counts, work)
-    for seg, cnt in zip(segments, true_counts.tolist()):
+    counts = obs.read("scan_counts", lambda: true_counts.tolist())
+    for seg, cnt in zip(segments, counts):
         pi = ops.hook(pi, seg)
         work = work.add(hook_ops=cnt * ops.bill_lift, hook_rounds=1)
         pi, work = ops.compress(pi, work)
@@ -331,12 +343,15 @@ def adaptive_rounds(edges: torch.Tensor, num_nodes: int,
     segments = pad_and_segment(edges, plan)
     counts = segment_true_counts(true_edges, plan, device=edges.device)
     pi0 = torch.arange(num_nodes, dtype=torch.int32, device=edges.device)
-    pi, work = segment_scan(pi0, segments, ops,
-                            WorkCounters.zeros(edges.device),
-                            true_counts=counts)
+    with obs.span("cc.scan", segments=plan.num_segments):
+        pi, work = segment_scan(pi0, segments, ops,
+                                WorkCounters.zeros(edges.device),
+                                true_counts=counts)
     flat = segments.reshape(-1, 2)
-    pi, work = cleanup_rounds(pi, flat, ops, work, true_edges=true_edges,
-                              max_rounds=max_rounds)
+    with obs.span("cc.cleanup"):
+        pi, work = cleanup_rounds(pi, flat, ops, work,
+                                  true_edges=true_edges,
+                                  max_rounds=max_rounds)
     return pi, work
 
 
@@ -453,7 +468,8 @@ def forest_segment_scan(pi: torch.Tensor, parents: torch.Tensor,
     result is the reference's, without every padding row's write
     landing on π[0]'s root."""
     bill = 1 + lift_steps
-    for seg, cnt in zip(segments, true_counts.tolist()):
+    counts = obs.read("scan_counts", lambda: true_counts.tolist())
+    for seg, cnt in zip(segments, counts):
         pi, parents = hook_edges_forest(pi, parents, seg[:cnt],
                                         lift_steps=lift_steps)
         work = work.add(hook_ops=cnt * bill, hook_rounds=1)
@@ -605,7 +621,10 @@ def forest_segment_scan_ids(pi: torch.Tensor, parents: torch.Tensor,
     n = pi.shape[0]
     fuel = compress_fuel(n)
     pbuf, ebuf = _with_sentinel(parents), _with_sentinel(parent_eidx)
-    counts = true_counts.tolist()
+    # the callers size the segments on the host: a host tensor's list is
+    # no read of the device
+    counts = true_counts.tolist() if true_counts.device != pi.device \
+        else obs.read("forest_counts", lambda: true_counts.tolist())
     sweeps = 0
     step = None
     for seg, ids, cnt in zip(segments, seg_ids, counts):
@@ -683,7 +702,7 @@ class _GraphedSegment:
         while sweeps < fuel:
             self.sweep.replay()
             sweeps += 1
-            if not bool(self.changed):
+            if not obs.read("sweep", lambda: bool(self.changed)):
                 break
         return sweeps
 
@@ -726,7 +745,7 @@ def pack_edge_rows(edges: torch.Tensor, edge_ids: torch.Tensor,
     becomes (0, 0) rows with id -1. Returns ``(packed_edges, packed_ids,
     true_count)``, the count a host int (the reference's is a device
     scalar; the loops here read it anyway)."""
-    idx = mask.nonzero().squeeze(1)
+    idx = obs.read("pack", lambda: mask.nonzero()).squeeze(1)
     n = idx.shape[0]
     packed = torch.zeros_like(edges)
     packed[:n] = edges[idx]
@@ -770,19 +789,23 @@ def forest_scoped_rounds(pi: torch.Tensor, parents: torch.Tensor,
     parents0 = torch.where(vertex_mask[:, None], -1, parents)
     eidx0 = torch.where(vertex_mask, -1, parent_eidx)
 
-    skel, skel_ids, n_skel = pack_edge_rows(parents, parent_eidx,
-                                            forest_keep)
-    pi1, parents1, eidx1, work = forest_scan_rounds_ids(
-        pi0, parents0, eidx0, skel, skel_ids, n_skel, work,
-        lift_steps=0, max_rounds=max_rounds, bill_nodes=bill_nodes,
-        segment_size=1024)
+    with obs.span("dyn.forest.skeleton") as sp:
+        skel, skel_ids, n_skel = pack_edge_rows(parents, parent_eidx,
+                                                forest_keep)
+        sp.tag(rows=n_skel, segments=-(-skel.shape[0] // 1024))
+        pi1, parents1, eidx1, work = forest_scan_rounds_ids(
+            pi0, parents0, eidx0, skel, skel_ids, n_skel, work,
+            lift_steps=0, max_rounds=max_rounds, bill_nodes=bill_nodes,
+            segment_size=1024)
 
-    crossing = edge_mask & (pi1[edges[:, 0]] != pi1[edges[:, 1]])
-    c_edges, c_ids, n_cross = pack_edge_rows(edges, edge_ids, crossing)
-    return forest_cleanup_rounds_ids(
-        pi1, parents1, eidx1, c_edges[:n_cross], c_ids[:n_cross], work,
-        true_edges=n_cross, lift_steps=0, max_rounds=max_rounds,
-        bill_nodes=bill_nodes)
+    with obs.span("dyn.forest.replace") as sp:
+        crossing = edge_mask & (pi1[edges[:, 0]] != pi1[edges[:, 1]])
+        c_edges, c_ids, n_cross = pack_edge_rows(edges, edge_ids, crossing)
+        sp.tag(rows=n_cross)
+        return forest_cleanup_rounds_ids(
+            pi1, parents1, eidx1, c_edges[:n_cross], c_ids[:n_cross], work,
+            true_edges=n_cross, lift_steps=0, max_rounds=max_rounds,
+            bill_nodes=bill_nodes)
 
 
 # ---------------------------------------------------------------------------
@@ -814,7 +837,7 @@ def scoped_rounds(pi: torch.Tensor, edges: torch.Tensor,
     writes all landing on one address."""
     n_v = pi.shape[0]
     dev = pi.device
-    idx = edge_mask.nonzero().squeeze(1)
+    idx = obs.read("scoped_rows", lambda: edge_mask.nonzero()).squeeze(1)
     n_scoped = idx.shape[0]
     packed = edges[idx]
     pi0 = torch.where(vertex_mask,
@@ -825,7 +848,8 @@ def scoped_rounds(pi: torch.Tensor, edges: torch.Tensor,
         pi1, work = ops.scan(pi0, segments, counts, work)
     else:
         pi1, seg = pi0, plan.segment_size
-        for i, cnt in enumerate(counts.tolist()):
+        for i, cnt in enumerate(
+                obs.read("scoped_counts", lambda: counts.tolist())):
             if cnt:
                 pi1 = ops.hook(pi1, packed[i * seg:i * seg + cnt])
             work = work.add(hook_ops=cnt * ops.bill_lift, hook_rounds=1)

@@ -18,7 +18,15 @@ autotune / heuristic) and the tenant attached to every event.
 Host **counters** (``count(name)``) are always on: plain dict increments
 for process-wide facts that must not depend on when ``enable()`` was
 called (autotune cache hits and misses, the sampled engine's work
-split).
+split, and the engines' device-to-host reads: ``read(site, fn)`` counts
+one under ``read.<site>`` and, while tracing is on, the nanoseconds the
+host waited under ``read_ns.<site>``).
+
+Span starts (``ts_us``) are on the wall clock (``time.time_ns``), the
+clock ``torch.profiler`` stamps its host events with, so an exported
+trace lines up with a profiler trace of the same run; durations are
+taken on ``time.perf_counter_ns``. ``PORT_ONLY`` lists the span and
+counter names that only the port's eager loops have.
 
 Exports: ``export_jsonl`` writes one JSON object per span plus a
 trailing ``counters`` record; ``export_chrome_trace`` writes the Chrome
@@ -32,6 +40,12 @@ import time
 from typing import Optional
 
 _ENABLED = False        # THE module-level fast-path flag (see enable())
+
+# prefixes of the names that the reference has no counterpart of: its
+# loops run on the device inside one program, so it reads nothing back
+# and has no phase spans inside a solve or a delete
+PORT_ONLY = ("read.", "read_ns.", "solver.open", "solver.plan", "cc.",
+             "dyn.")
 
 
 class _NullSpan:
@@ -106,7 +120,7 @@ class Span:
     retired-request count) before it closes."""
 
     __slots__ = ("name", "tenant", "step", "tags", "depth",
-                 "_tracer", "_t0_ns", "_annotation")
+                 "_tracer", "_t0_ns", "_wall_ns", "_annotation")
     enabled = True
 
     def __init__(self, tracer: "Tracer", name: str,
@@ -119,6 +133,7 @@ class Span:
         self.depth = 0
         self._tracer = tracer
         self._t0_ns = 0
+        self._wall_ns = 0
         self._annotation = None
 
     def tag(self, **tags) -> "Span":
@@ -133,6 +148,7 @@ class Span:
         if ann is not None:
             ann.__enter__()
             self._annotation = ann
+        self._wall_ns = time.time_ns()
         self._t0_ns = time.perf_counter_ns()
         return self
 
@@ -144,7 +160,7 @@ class Span:
         if t._stack and t._stack[-1] is self:
             t._stack.pop()
         rec = {"name": self.name,
-               "ts_us": round((self._t0_ns - t._epoch_ns) / 1e3, 3),
+               "ts_us": round(self._wall_ns / 1e3, 3),
                "dur_us": round(dur_ns / 1e3, 3),
                "depth": self.depth}
         if self.tenant is not None:
@@ -166,7 +182,6 @@ class Tracer:
         self.log = EventLog(capacity)
         self.counters: dict[str, int] = {}
         self._stack: list = []
-        self._epoch_ns = time.perf_counter_ns()
         self._annotate = False
         self._record_function = None       # torch.profiler, lazy
 
@@ -195,12 +210,11 @@ class Tracer:
         self._annotate = True
 
     def reset(self) -> None:
-        """Forget events, counters, and the open-span stack; restart
-        the trace epoch (test/benchmark hook)."""
+        """Forget events, counters, and the open-span stack
+        (test/benchmark hook)."""
         self.log.clear()
         self.counters.clear()
         self._stack.clear()
-        self._epoch_ns = time.perf_counter_ns()
 
     # -- exporters ----------------------------------------------------------
 
@@ -319,3 +333,20 @@ def span(name: str, tenant: Optional[str] = None,
 def count(name: str, n: int = 1) -> None:
     """Bump a host counter (always on — independent of ``enable()``)."""
     _TRACER.count(name, n)
+
+
+def read(site: str, fn):
+    """Return ``fn()``, a device-to-host read (``bool``, ``int``,
+    ``.item()``, ``.tolist()``, ``.cpu()``, or a ``nonzero`` whose size
+    the host uses), counted under ``read.<site>`` (always on); while
+    tracing is on, the nanoseconds it blocked the host are added to
+    ``read_ns.<site>``. ``fn`` is a lambda written at the call site, so
+    the read stays in the caller's frame, where the analysis passes
+    place it."""
+    _TRACER.count("read." + site)
+    if not _ENABLED:
+        return fn()
+    t0 = time.perf_counter_ns()
+    out = fn()
+    _TRACER.count("read_ns." + site, time.perf_counter_ns() - t0)
+    return out

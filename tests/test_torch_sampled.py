@@ -124,10 +124,15 @@ def test_spans_and_counters_land_in_the_tracer():
         res = tsampled.solve_sampled(edges, n, device="cpu")
     finally:
         tobs.disable()
-    names = [ev["name"] for ev in tracer.log.events()]
+    # the port's own read counters and engine spans (``PORT_ONLY``) have
+    # no counterpart in the reference: the rest is compared exactly
+    names = [ev["name"] for ev in tracer.log.events()
+             if not ev["name"].startswith(tobs.PORT_ONLY)]
     assert names == ["sampled.sample_phase", "sampled.residue_scan"]
     assert tracer.log.events()[0]["tags"] == {"num_nodes": n, "k": 2}
-    assert tracer.counters == {
+    counters = {k: v for k, v in tracer.counters.items()
+                if not k.startswith(tobs.PORT_ONLY)}
+    assert counters == {
         "sampled.solves": 1,
         "sampled.hook_ops.sample": int(res.stats["sample_hook_ops"]),
         "sampled.hook_ops.residue": int(res.stats["residue_hook_ops"])}
