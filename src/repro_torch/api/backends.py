@@ -2,9 +2,9 @@
 each: the wiring between the facade and the engines.
 
 Counter semantics: backends with ``bit_exact_counters=True`` return
-exact true-work ``WorkCounters`` (padding never billed), equal to the
-reference's. The per-round kernel backend ``pallas`` and ``hostloop``
-return labels with zero or partial counters.
+exact true-work ``WorkCounters`` (padding never billed, int64), equal
+to the reference's int32 ones below 2^31. The per-round kernel backend
+``pallas`` and ``hostloop`` return labels with zero or partial counters.
 
 On a CUDA graph, ``pallas_fused`` and ``sampled_fused`` run the fused
 segment-scan kernel, ``pallas`` the hook and multi_jump kernels, and

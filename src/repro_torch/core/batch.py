@@ -172,7 +172,7 @@ def solve_bucket(edges: torch.Tensor, true_edges: torch.Tensor,
     """Adaptive CC over one bucket: ``edges`` int32 [B, E_pad, 2]
     ((0, 0)-padded, local ids), ``true_edges`` / ``true_nodes`` int32
     [B] billing counts, all on one device. Returns (labels int32 [B,
-    V_pad], work int32 [5, B] in ``WorkCounters`` field order).
+    V_pad], work int64 [5, B] in ``WorkCounters`` field order).
 
     One launch of the batched scan for the bucket, then one per cleanup
     round over the graphs still inconsistent (the others get a count of
@@ -189,9 +189,9 @@ def solve_bucket(edges: torch.Tensor, true_edges: torch.Tensor,
         .expand(batch, v_pad).contiguous()
     pi, sweeps = fused_segment_scan_batched(pi0, segs, counts,
                                             lift_steps=lift_steps, fuel=fuel)
-    total = sweeps.sum(dim=1, dtype=torch.int32)
-    hook_ops = counts.sum(dim=1, dtype=torch.int32) * bill
-    hook_rounds = torch.full((batch,), plan.num_segments, dtype=torch.int32,
+    total = sweeps.sum(dim=1, dtype=torch.int64)
+    hook_ops = counts.sum(dim=1, dtype=torch.int64) * bill
+    hook_rounds = torch.full((batch,), plan.num_segments, dtype=torch.int64,
                              device=dev)
     jump_sweeps = total
     jump_ops = total * true_nodes
@@ -201,9 +201,9 @@ def solve_bucket(edges: torch.Tensor, true_edges: torch.Tensor,
     for _ in range(max_rounds):
         if not bool(active.any()):
             break
-        act = active.to(torch.int32)
+        act = active.to(torch.int64)
         pi, sw = fused_segment_scan_batched(
-            pi, flat, (true_edges * act)[:, None], lift_steps=lift_steps,
+            pi, flat, (true_edges * active)[:, None], lift_steps=lift_steps,
             fuel=fuel)
         sw = sw[:, 0] * act
         hook_ops = hook_ops + true_edges * bill * act
@@ -211,7 +211,7 @@ def solve_bucket(edges: torch.Tensor, true_edges: torch.Tensor,
         jump_sweeps = jump_sweeps + sw
         jump_ops = jump_ops + sw * true_nodes
         active = active & ~consistent_rows(pi, flat[:, 0])
-    syncs = torch.ones((batch,), dtype=torch.int32, device=dev)
+    syncs = torch.ones((batch,), dtype=torch.int64, device=dev)
     return pi, torch.stack([hook_ops, jump_ops, jump_sweeps, hook_rounds,
                             syncs])
 

@@ -26,8 +26,9 @@ variants and returns the spanning forest beside the labels.
 The backend names are the reference's, so that code keyed on them reads
 the same in both packages. Every variant returns canonical labels
 (``labels[v] == min vertex id of v's component``) and ``WorkCounters``
-equal to the reference's field by field; work bills TRUE (unpadded)
-edges. The reference's jitted while-loops are host loops here, and
+equal to the reference's field by field wherever its int32 counters do
+not wrap (the port counts in int64); work bills TRUE (unpadded) edges.
+The reference's jitted while-loops are host loops here, and
 ``sync_rounds`` still bills what the reference bills (for example 1 for
 a method that is a single jitted program), not the host reads this
 eager port makes.

@@ -22,17 +22,17 @@ the surviving forest plus crossing edges (``rounds.forest_scoped_rounds``).
 Labels and the label version live on the device; the version ticks
 (inside the tick's device ops) only when labels changed: a merge, or a
 split. Per-batch ``WorkCounters`` queue as device tensors and fold into
-host ints every ``_DRAIN_EVERY`` batches or when ``work`` is read, so
-totals never wrap int32. The reference's ``lax.cond`` between the
-recompute and the no-op is a host branch here, on whether the batch
-retired anything (or hit the forest); the no-op bills zero work, as the
-reference's does, and the eager loops read their conditions back from
-the device. ``sync_rounds`` still bills the reference's one device
-program per tick. The reads are counted by ``obs.read`` (``read.drain``
-and ``read.work`` for the two drains of the work queue, ``delete_hits``
-and ``tree_hits`` for the hit classifications, the rest in
-``rounds``), and a delete's phases run under the spans
-``dyn.tombstone``, ``dyn.scoped`` and ``dyn.forest.rebuild``.
+host ints every ``_DRAIN_EVERY`` batches or when ``work`` is read. The
+reference's ``lax.cond`` between the recompute and the no-op is a host
+branch here, on whether the batch retired anything (or hit the forest);
+the no-op bills zero work, as the reference's does, and the eager loops
+read their conditions back from the device. ``sync_rounds`` still bills
+the reference's one device program per tick. The reads are counted by
+``obs.read`` (``read.drain`` and ``read.work`` for the two drains of the
+work queue, ``delete_hits`` and ``tree_hits`` for the hit
+classifications, the rest in ``rounds``), and a delete's phases run
+under the spans ``dyn.tombstone``, ``dyn.scoped`` and
+``dyn.forest.rebuild``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -82,7 +82,7 @@ class IncrementalCC:
         self.num_edges_inserted = 0
         self.batches_absorbed = 0
         self._version = torch.zeros((), dtype=torch.int32, device=self.device)
-        # per-batch int32 device counters queue here unsynced and fold into
+        # per-batch int64 device counters queue here unsynced and fold into
         # host ints lazily (at ``work`` or every _DRAIN_EVERY batches)
         self._work_host = {k: 0 for k in WorkCounters._fields}
         self._work_pending: list[WorkCounters] = []

@@ -15,7 +15,8 @@ a loop condition is read back from the device (``.item()``-style) once
 per iteration. ``WorkCounters`` still bill exactly what the reference
 bills — ``sync_rounds`` counts the reference's host-equivalent
 synchronisation points, not the host reads this eager loop makes — so
-the counters of both packages compare equal field by field. The reads
+the counters of both packages compare equal field by field (below
+2^31, where the reference's int32 counters wrap). The reads
 themselves are counted by ``obs.read`` under ``read.<site>``: ``sweep``
 (a compress sweep's changed flag), ``consistent`` (the cleanup loop's
 check), ``scan_counts``, ``scoped_rows``, ``scoped_counts``,
@@ -27,8 +28,13 @@ ends on a read, so its host time is the phase's wall time (a fused
 scan is one launch that reads nothing back).
 
 Work accounting bills *true* edge counts: padded ``(0, 0)`` no-op edges
-are never counted. Counters are 0-d int32 tensors on the graph's device
-and wrap on overflow exactly where the reference's int32 counters wrap.
+are never counted. Counters are 0-d int64 tensors on the graph's device:
+they equal the reference's int32 counters wherever those do not wrap
+(below 2^31), and stay exact past it, where a graph of 174M vertices
+bills |V| a sweep and 3 hook_ops an edge a pass. ``cc.scan`` and
+``cc.cleanup`` are tagged with the Jacobi ``sweeps`` they ran, and
+``cc.cleanup`` with its hook ``rounds``, from the host's own counts of
+the reads above.
 """
 from __future__ import annotations
 
@@ -50,13 +56,14 @@ def compress_fuel(num_nodes: int) -> int:
 
 
 def wrap_int32(x: int) -> int:
-    """A Python int reduced to int32 two's complement (what the
-    reference's int32 counters hold after the same additions)."""
+    """A Python int reduced to int32 two's complement, for the int32
+    tensors of row counts (``check_shard_extent`` bounds them)."""
     return ((int(x) + 2**31) % 2**32) - 2**31
 
 
 class WorkCounters(NamedTuple):
-    """Hardware-independent work counters, as in the reference:
+    """Hardware-independent work counters, the reference's fields in
+    int64 (equal to its int32 counters below 2^31):
 
     * ``hook_ops``    — edge-hook evaluations performed (true edges only),
     * ``jump_ops``    — vertex-jump (gather) evaluations performed,
@@ -74,17 +81,17 @@ class WorkCounters(NamedTuple):
 
     @staticmethod
     def zeros(device) -> "WorkCounters":
-        z = torch.zeros((), dtype=torch.int32, device=device)
+        z = torch.zeros((), dtype=torch.int64, device=device)
         return WorkCounters(z, z, z, z, z)
 
     def add(self, **kw) -> "WorkCounters":
-        """Add int32 amounts: tensors are cast, Python ints wrapped."""
+        """Add exact amounts: tensors are cast to int64, Python ints
+        added as they are."""
         d = self._asdict()
         for k, v in kw.items():
             if isinstance(v, torch.Tensor):
-                d[k] = d[k] + v.to(torch.int32)
-            else:
-                d[k] = d[k] + wrap_int32(v)
+                v = v.to(torch.int64)
+            d[k] = d[k] + v
         return WorkCounters(**d)
 
     def as_ints(self) -> dict:
@@ -135,8 +142,11 @@ def jacobi_sweeps(pi: torch.Tensor, fuel: int) -> tuple[torch.Tensor, int]:
 
 def _sweep_bill(num_nodes: int, bill_nodes, sweeps: int):
     """jump_ops for ``sweeps`` sweeps billed at ``bill_nodes`` (default
-    |V|) each: a tensor when ``bill_nodes`` is one, else an int."""
+    |V|) each: an int64 tensor when ``bill_nodes`` is a tensor, else an
+    int."""
     v = num_nodes if bill_nodes is None else bill_nodes
+    if isinstance(v, torch.Tensor):
+        v = v.to(torch.int64)
     return v * sweeps
 
 
@@ -145,7 +155,7 @@ def compress(pi: torch.Tensor, work: WorkCounters,
              bill_nodes: int | torch.Tensor | None = None,
              ) -> tuple[torch.Tensor, WorkCounters]:
     """Full Compress via pointer doubling under ``compress_fuel(V)``.
-    Each sweep bills ``bill_nodes`` (default |V|; an int or an int32
+    Each sweep bills ``bill_nodes`` (default |V|; an int or an integer
     0-d tensor) jump_ops and one jump_sweep; with ``count_syncs`` also
     one sync_round (the Soman baseline checks convergence from the host
     after every sweep)."""
@@ -191,7 +201,7 @@ def torch_round_ops(lift_steps: int = 2,
                     bill_nodes: int | torch.Tensor | None = None
                     ) -> RoundOps:
     """Plain torch ops (the default backend; the reference's
-    ``jnp_round_ops``). ``bill_nodes`` (an int or an int32 0-d tensor)
+    ``jnp_round_ops``). ``bill_nodes`` (an int or an integer 0-d tensor)
     replaces |V| as the jump_ops billed per compress sweep: the scoped
     recompute bills its affected-vertex count."""
     return RoundOps(
@@ -231,12 +241,12 @@ def fused_round_ops(lift_steps: int = 2,
         v = pi.shape[0] if bill_nodes is None else bill_nodes
         pi, sweeps = fused_segment_scan(pi, segments, true_counts,
                                         lift_steps=lift_steps)
-        total = sweeps.sum(dtype=torch.int32)
+        total = sweeps.sum(dtype=torch.int64)
         return pi, work.add(
-            hook_ops=true_counts.sum(dtype=torch.int32) * bill,
+            hook_ops=true_counts.sum(dtype=torch.int64) * bill,
             hook_rounds=segments.shape[0],
-            jump_ops=total * (v if isinstance(v, torch.Tensor)
-                              else wrap_int32(v)),
+            jump_ops=total * (v.to(torch.int64)
+                              if isinstance(v, torch.Tensor) else v),
             jump_sweeps=total)
 
     return RoundOps(
@@ -343,16 +353,34 @@ def adaptive_rounds(edges: torch.Tensor, num_nodes: int,
     segments = pad_and_segment(edges, plan)
     counts = segment_true_counts(true_edges, plan, device=edges.device)
     pi0 = torch.arange(num_nodes, dtype=torch.int32, device=edges.device)
-    with obs.span("cc.scan", segments=plan.num_segments):
+    with obs.span("cc.scan", segments=plan.num_segments) as sp:
+        sweeps0 = _reads("sweep")
         pi, work = segment_scan(pi0, segments, ops,
                                 WorkCounters.zeros(edges.device),
                                 true_counts=counts)
+        if ops.scan is None:
+            sp.tag(sweeps=_reads("sweep") - sweeps0)
     flat = segments.reshape(-1, 2)
-    with obs.span("cc.cleanup"):
+    with obs.span("cc.cleanup") as sp:
+        sweeps0, checks0 = _reads("sweep"), _reads("consistent")
         pi, work = cleanup_rounds(pi, flat, ops, work,
                                   true_edges=true_edges,
                                   max_rounds=max_rounds)
+        # one check before the first round and one after each
+        sp.tag(rounds=_reads("consistent") - checks0 - 1)
+        if ops.scan is None:
+            sp.tag(sweeps=_reads("sweep") - sweeps0)
     return pi, work
+
+
+def _reads(site: str) -> int:
+    """The host reads made so far at ``site`` (``obs.read`` counts them
+    whether or not tracing is on). A Jacobi sweep reads its changed flag
+    once and a cleanup round its consistency once, so their differences
+    count a phase's sweeps and rounds without reading the device. The
+    fused scan's sweeps are counted on the device: its phases carry no
+    ``sweeps`` tag."""
+    return obs.tracer().counters.get("read." + site, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -611,8 +639,7 @@ def forest_segment_scan_ids(pi: torch.Tensor, parents: torch.Tensor,
     tree-aware delete). A segment's true rows are its first
     ``true_counts`` rows; only they are hooked (see above). The tables
     are recorded in place into one sentinel-extended copy for the whole
-    scan, and the counters added once at its end (int32 addition wraps
-    the same in any order).
+    scan, and the counters added once at its end.
 
     On CUDA, once a full segment has run eagerly, the full segments
     replay as CUDA graphs (``_GraphedSegment``): the same ops, with the

@@ -48,7 +48,8 @@ class SampledResult(NamedTuple):
     labels: torch.Tensor          # int32 [V] canonical min-id labels
     parents: torch.Tensor         # int32 [V, 2] forest edges (-1 = root)
     work: WorkCounters            # sample + residue billing
-    stats: dict                   # 0-d int32 tensors: phase split + giant
+    stats: dict                   # 0-d tensors: phase split (int64
+                                  # hook_ops, as work) + giant (int32)
 
 
 def _sample_phase(edges: torch.Tensor, true_edges: int, num_nodes: int,
@@ -136,7 +137,8 @@ def _residue_scan(edges: torch.Tensor, true_edges: int, pi: torch.Tensor,
 
 def _stats(dev, giant_size: int) -> dict:
     z = torch.zeros((), dtype=torch.int32, device=dev)
-    return {"sample_hook_ops": z, "residue_hook_ops": z, "n_sampled": z,
+    w = WorkCounters.zeros(dev).hook_ops
+    return {"sample_hook_ops": w, "residue_hook_ops": w, "n_sampled": z,
             "n_residue": z, "giant_label": z,
             "giant_size": torch.full((), giant_size, dtype=torch.int32,
                                      device=dev)}

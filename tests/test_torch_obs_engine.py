@@ -125,8 +125,13 @@ def test_engine_spans_nest_and_tracing_off_records_none(tracer):
     run, delete = ev["plan.run"][0], ev["solver.delete"][0]
     assert _contains(run, ev["cc.scan"][0])
     assert _contains(run, ev["cc.cleanup"][0])
-    assert ev["cc.scan"][0]["tags"] == {
-        "segments": plan.segmentation.num_segments}
+    work = plan.run().work.as_ints()    # tracing off again: same work
+    scan, cleanup = ev["cc.scan"][0]["tags"], ev["cc.cleanup"][0]["tags"]
+    assert scan == {"segments": plan.segmentation.num_segments,
+                    "sweeps": scan["sweeps"]}
+    assert set(cleanup) == {"rounds", "sweeps"}
+    assert scan["sweeps"] + cleanup["sweeps"] == work["jump_sweeps"]
+    assert scan["segments"] + cleanup["rounds"] == work["hook_rounds"]
     for name in ("dyn.tombstone", "dyn.forest.rebuild",
                  "dyn.forest.skeleton", "dyn.forest.replace"):
         assert _contains(delete, ev[name][0]), name

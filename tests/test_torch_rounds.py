@@ -132,9 +132,24 @@ def test_compress_fuel_matches_reference():
         assert tr.compress_fuel(v) == jr.compress_fuel(v)
 
 
-def test_work_counters_wrap_like_int32():
+def test_work_counters_count_past_int32():
+    """The port's counters are int64: past 2^31 - 1, where the
+    reference's int32 counters wrap, they stay exact."""
     w = tr.WorkCounters.zeros("cpu").add(jump_ops=2**31 - 1)
     w = w.add(jump_ops=2, hook_ops=2**32 + 5)
-    assert w.jump_ops.dtype == torch.int32
-    assert w.as_ints()["jump_ops"] == -2**31 + 1
-    assert w.as_ints()["hook_ops"] == 5
+    w = w.add(hook_ops=torch.tensor(2**31 - 1, dtype=torch.int32),
+              jump_sweeps=torch.tensor(2**40, dtype=torch.int64))
+    assert all(v.dtype == torch.int64 for v in w)
+    assert w.as_ints() == {"hook_ops": 2**32 + 5 + 2**31 - 1,
+                           "jump_ops": 2**31 + 1, "jump_sweeps": 2**40,
+                           "hook_rounds": 0, "sync_rounds": 0}
+    # a compress of a 3-chain bills bill_nodes a sweep: 3 sweeps (the
+    # last changes nothing) at 2^30 each pass 2^31
+    pi = torch.tensor([0, 0, 1, 2], dtype=torch.int32)
+    for bill in (2**30, torch.tensor(2**30, dtype=torch.int32)):
+        flat, w = tr.compress(pi, tr.WorkCounters.zeros("cpu"),
+                              bill_nodes=bill)
+        assert flat.tolist() == [0, 0, 0, 0]
+        assert w.jump_sweeps.item() == 3
+        assert w.jump_ops.item() == 3 * 2**30
+        assert w.jump_ops.dtype == torch.int64
