@@ -166,7 +166,17 @@ then the dynamic engine (``Solver.insert`` / ``delete`` over
     (``torch.cuda.set_sync_debug_mode("warn")``) and a delete tick's
     device time by op (``torch.profiler``); the tombstone step's byte
     bound; peak device memory; then K1 against its plain version on
-    each fused stream's last scoped scan (pi and sweeps equal), timed;
+    each fused stream's last scoped scan (pi and sweeps equal), timed.
+    The forest body's launches over each stream equal its id-recording
+    scans where π and its buffer fit the L2 (8 |V| bytes), else 0. On
+    usa, beyond the L2, one session on the forest route (the whole
+    graph, its rebuild, a delete of 64 edges) with the device loop
+    forced records those two scans. Then each stream's last skeleton and
+    rebuild scans and usa's two: ``forest_segment_scan_ids`` on the
+    device and the host loop (π, tables and counters equal; each timed
+    once), and K1's forest body, with its plain version where the gate
+    engages (π, tables and per-segment sweeps equal), timed with a
+    bound from the rate of an elementwise pass over a π-sized buffer;
 17. parity constants: the same schedule at scale 0.002 on the four
     stand-ins gives, on every route, the reference's end hook_ops,
     delete-side hook_ops, num_edges_deleted, version and
@@ -1823,10 +1833,133 @@ def run_stream(torch, dev, n: int, sched, route: str, on_tick=None,
     return s, del_ops, ms
 
 
+def forest_sweeps_run(torch, rounds, pi, edges, counts, seg: int,
+                      lift: int, fuel: int) -> int:
+    """The Jacobi sweeps that K1's forest body runs over one id-recording
+    scan: the billed sweeps less the one it skips in each segment whose
+    hook lowered no label after a sweep that changed nothing."""
+    run, fixed = 0, False
+    for i, cnt in enumerate(counts.tolist()):
+        landed = False
+        if cnt:
+            new, _, _ = rounds._forest_hook(
+                pi, edges[i * seg:i * seg + cnt], lift)
+            landed, pi = not torch.equal(new, pi), new
+        if fixed and not landed:
+            continue
+        fixed = False
+        for _ in range(fuel):
+            nxt = pi[pi]
+            run += 1
+            if torch.equal(nxt, pi):
+                fixed = True
+                break
+            pi = nxt
+    return run
+
+
+def forest_scan_entry(torch, rounds, cc_ops, cc_ref, scan: tuple,
+                      plain: bool) -> dict:
+    """One recorded id-recording scan (``forest_segment_scan_ids``'s
+    inputs) run again: through ``forest_segment_scan_ids`` on both loops
+    (the gate forced each way; π, the tables and the five counters must
+    be equal), and through K1's forest body beside its plain version
+    (with ``plain``; π, the tables and each segment's sweeps must be
+    equal). Times are CUDA-event ms (the kernel's with its wrapper); its
+    device ms from the profiler, over 5 calls. The bound: each true
+    row's edge read, its 2 + 2 * lift endpoint gathers and its label
+    read and write at hi, and each sweep the forest body runs a read
+    and a write of π (8 B a vertex), at the rate of an elementwise pass
+    from one π-sized buffer into another on this card (its device time,
+    ramp included; L2-resident where the gate engages). A sweep's gather
+    of A[A[v]] is left out: the body serves the lowest labels from
+    shared memory, and on a road graph a neighbour's label is mostly in
+    L1 (with 4 B a vertex for it, usa-osm's skeleton scan ran in 0.83
+    of that bound on an H100)."""
+    pi, parents, eidx, edges, ids, counts, seg, lift = scan
+    n, fuel = pi.shape[0], rounds.compress_fuel(pi.shape[0])
+    counts = counts.cpu().to(torch.int32)
+    fits = rounds.forest_scan_fits_l2
+
+    def on_loop(device_loop: bool):
+        rounds.forest_scan_fits_l2 = lambda *a: device_loop
+        try:
+            out = rounds.forest_segment_scan_ids(
+                pi, parents.clone(), eidx.clone(), edges, ids, seg,
+                rounds.WorkCounters.zeros(pi.device), counts,
+                lift_steps=lift)
+            torch.cuda.synchronize()
+        finally:
+            rounds.forest_scan_fits_l2 = fits
+        return out
+
+    loops, loop_ms = {}, {}
+    for name, flag in (("device", True), ("host", False)):
+        t0 = time.perf_counter()
+        loops[name] = on_loop(flag)
+        loop_ms[name] = (time.perf_counter() - t0) * 1e3
+    (dp, dpar, de, dw), (hp, hpar, he, hw) = loops["device"], loops["host"]
+    check(torch.equal(dp, hp) and torch.equal(dpar, hpar)
+          and torch.equal(de, he) and dw.as_ints() == hw.as_ints(),
+          "the forest scan's device loop differs from its host loop")
+    work = hw.as_ints()
+    entry = dict(rows=int(counts.sum()), segments=counts.shape[0],
+                 segment_size=seg, lift_steps=lift, num_nodes=n,
+                 sweeps=work["jump_sweeps"], loops_equal=True,
+                 device_loop_ms=loop_ms["device"],
+                 host_loop_ms=loop_ms["host"])
+    tables = parents.clone(), eidx.clone()
+
+    def kernel():
+        return cc_ops.fused_forest_scan(
+            pi, *tables, edges, ids, counts, segment_size=seg,
+            lift_steps=lift, fuel=fuel)
+
+    got = kernel()
+    if plain:
+        want_tables = parents.clone(), eidx.clone()
+        want = cc_ref.ref_forest_scan(
+            pi, *want_tables, edges, ids, counts, segment_size=seg,
+            lift_steps=lift, fuel=fuel)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip(
+            (*got, *tables), (*want, *want_tables)))
+        check(err == 0, "K1's forest body differs from its plain version")
+        entry.update(max_abs_err=err, plain_ms=time_ms(
+            torch, lambda: cc_ref.ref_forest_scan(
+                pi, parents.clone(), eidx.clone(), edges, ids, counts,
+                segment_size=seg, lift_steps=lift, fuel=fuel), reps=1))
+    check(int(got[1].sum()) == work["jump_sweeps"],
+          "K1's forest body billed other sweeps than the host loop")
+    per_kernel, _ = device_kernels(torch, kernel, reps=5)
+    body = kernel_share(per_kernel, "cc_fused_forest_kernel")
+    run = forest_sweeps_run(torch, rounds, pi, edges, counts, seg, lift,
+                            fuel)
+    a, b = torch.arange(n, dtype=torch.int32, device=pi.device), \
+        torch.empty_like(pi)
+    # its device time; where the profile lost it, CUDA events over 50
+    # back-to-back passes (an upper figure: the launches are in it)
+    copy_ms = device_ms(torch, lambda: torch.neg(a, out=b), reps=20) \
+        or time_ms(torch, lambda: torch.neg(a, out=b), batch=50)
+    rate = 8 * n / (copy_ms / 1e3)
+    nbytes = entry["rows"] * (16 + 8 * (1 + lift)) + 8 * n * run
+    # the profiler can lose device events: a profile short of a launch
+    # gives no device time
+    entry.update(ms=time_ms(torch, kernel, reps=5),
+                 device_ms=body["ms"] if body["launches"] == 1 else None,
+                 sweeps_run=run, copy_bytes_per_s=rate,
+                 bound_ms=nbytes / rate * 1e3)
+    entry["bound_share"] = entry["bound_ms"] / (entry["device_ms"]
+                                                or entry["ms"])
+    return entry
+
+
 def dynamic_phases(torch, np, dev, rows: dict, card: str, graphs: dict) -> dict:
     """Phases 16-17: the dynamic stream on phase 3's graphs at full
     scale, then its parity constants at scale 0.002."""
+    from repro_torch.api import Solver
     from repro_torch.connectivity import policy
+    from repro_torch.core import rounds
     from repro_torch.core.unionfind import connected_components_scipy
     from repro_torch.graphs.generators import table1_scaled
     from repro_torch.kernels.cc_fused import ops as cc_ops, ref as cc_ref
@@ -1834,8 +1967,8 @@ def dynamic_phases(torch, np, dev, rows: dict, card: str, graphs: dict) -> dict:
     from repro_torch.kernels.multi_jump import ops as mj_ops
 
     FUSED, FOREST = policy.DYNAMIC_DELETE_FUSED, policy.DYNAMIC_DELETE_FOREST
-    ks = {"cc_fused": cc_ops.KERNEL, "hook": hook_ops.KERNEL,
-          "multi_jump": mj_ops.KERNEL}
+    ks = {"cc_fused": cc_ops.KERNEL, "cc_fused_forest": cc_ops.FOREST,
+          "hook": hook_ops.KERNEL, "multi_jump": mj_ops.KERNEL}
     out = {}
     # the last scoped scan of each fused stream (K1's inputs on the path),
     # held against the plain version after the stream
@@ -1846,6 +1979,24 @@ def dynamic_phases(torch, np, dev, rows: dict, card: str, graphs: dict) -> dict:
         if segments.shape[0] > 1:
             scans[current] = (pi, segments, true_counts)
         return kernel_scan(pi, segments, true_counts, **kw)
+
+    # the last skeleton scan (lift 0) and the last forest rebuild's scan
+    # of each forest stream, as the id-recording scan got them (it writes
+    # the tables in place, so they are copied), and the scans counted
+    forest_scans, forest_calls = {}, {}
+    segment_scan_ids = rounds.forest_segment_scan_ids
+
+    def recording_forest(pi, parents, parent_eidx, edges, edge_ids,
+                         segment_size, work, true_counts, lift_steps=2,
+                         **kw):
+        kind = "skeleton" if lift_steps == 0 else "rebuild"
+        forest_scans[current, kind] = tuple(
+            t.clone() for t in (pi, parents, parent_eidx, edges, edge_ids,
+                                true_counts)) + (segment_size, lift_steps)
+        forest_calls[current] = forest_calls.get(current, 0) + 1
+        return segment_scan_ids(pi, parents, parent_eidx, edges, edge_ids,
+                                segment_size, work, true_counts,
+                                lift_steps=lift_steps, **kw)
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -1888,6 +2039,8 @@ def dynamic_phases(torch, np, dev, rows: dict, card: str, graphs: dict) -> dict:
 
             current = name
             cc_ops.fused_segment_scan = recording_scan
+            rounds.forest_segment_scan_ids = recording_forest
+            forest_calls[name] = 0
             for k in ks.values():
                 k.launches = 0
             t0 = time.perf_counter()
@@ -1897,7 +2050,18 @@ def dynamic_phases(torch, np, dev, rows: dict, card: str, graphs: dict) -> dict:
                 torch.cuda.synchronize()
             finally:
                 cc_ops.fused_segment_scan = kernel_scan
+                rounds.forest_segment_scan_ids = segment_scan_ids
             launches = {k: kern.launches for k, kern in ks.items()}
+            # the forest body runs each id-recording scan where the gate
+            # engages, and nothing else
+            on_device = rounds.forest_scan_loop(n, dev) == "device"
+            check(launches["cc_fused_forest"]
+                  == (forest_calls[name] if on_device else 0)
+                  and (route != FOREST or forest_calls[name] > 0),
+                  f"{name} {route}: the forest body launched "
+                  f"{launches['cc_fused_forest']} times over "
+                  f"{forest_calls[name]} id-recording scans (device loop "
+                  f"{on_device})")
             wall = time.perf_counter() - t0
             got = s.labels.cpu().numpy()
             check(np.array_equal(got, want),
@@ -1998,6 +2162,50 @@ def dynamic_phases(torch, np, dev, rows: dict, card: str, graphs: dict) -> dict:
         rows["cc_fused"].setdefault("dynamic_scan", {})[name] = entry
         print(f"cc_fused {name} scoped scan ({card}): {entry}")
     scans.clear()
+
+    # a forest delete on each graph the forest streams left out (π and
+    # its buffer beyond the L2, where the gate keeps the host loop): the
+    # whole graph in one session on the forest route, its rebuild, then
+    # one delete of 64 edges; both scans run on the device loop (the
+    # gate forced) to record them
+    fits = rounds.forest_scan_fits_l2
+    for name, g in graphs.items():
+        if any(k[0] == name for k in forest_scans):
+            continue
+        n = g.num_nodes
+        host = g.edges[:g.true_edges].cpu().numpy()
+        kills = host[np.random.default_rng(3).choice(host.shape[0], 64,
+                                                     replace=False)]
+        current = name
+        rounds.forest_segment_scan_ids = recording_forest
+        rounds.forest_scan_fits_l2 = lambda *a: True
+        try:
+            s = Solver.open(num_nodes=n, delete_route=FOREST, device=dev,
+                            policy_cache=policy.AutotuneCache(None))
+            s.insert(host)
+            s.state.ensure_forest()
+            s.delete(kills)
+            torch.cuda.synchronize()
+        finally:
+            rounds.forest_segment_scan_ids = segment_scan_ids
+            rounds.forest_scan_fits_l2 = fits
+        check(s.last_method == FOREST, f"{name}: the delete of 64 edges "
+              f"took {s.last_method}")
+        del s
+        torch.cuda.empty_cache()
+
+    # each recorded scan on both loops of the id-recording scan, and K1's
+    # forest body against its plain version (on the graphs whose forest
+    # stream ran on it; beyond the L2 the host loop is the plain time)
+    for (name, kind), scan in sorted(forest_scans.items()):
+        engaged = rounds.forest_scan_loop(scan[0].shape[0], dev) == "device"
+        entry = forest_scan_entry(torch, rounds, cc_ops, cc_ref, scan,
+                                  plain=engaged)
+        entry["gate"] = "device" if engaged else "host"
+        rows["cc_fused"].setdefault("forest_scan", {})[
+            f"{name} {kind}"] = entry
+        print(f"cc_fused forest body {name} {kind} scan ({card}): {entry}")
+    forest_scans.clear()
     out["dynamic_s"] = time.perf_counter() - t_phase
     print(f"dynamic: {out['dynamic_s']:.1f} s")
 

@@ -411,27 +411,23 @@ class DynamicCC(IncrementalCC):
         bulk route staled it: the Fig. 4 pipeline with id-recording
         hooks over the packed alive rows. Its labels are canonical and
         equal the live state's, so the version does not tick. Counts
-        into ``dynamic.deletes.rebuild``."""
+        into ``dynamic.deletes.rebuild``; its span's ``loop`` tag says
+        where the scan's sweeps run (``rounds.forest_scan_loop``)."""
         if self._forest_valid:
             return
-        with obs.span("dyn.forest.rebuild"):
+        with obs.span("dyn.forest.rebuild") as sp:
             dev, n = self.device, self.num_nodes
             edges, alive = self.log.edges, self.log.alive
             e = edges.shape[0]
             packed, pids, true = rounds.pack_edge_rows(
                 edges, torch.arange(e, dtype=torch.int32, device=dev), alive)
             plan = plan_segmentation(e, n, adaptive_num_segments(e, n))
-            segments = rounds.pad_and_segment(packed, plan)
-            pad = plan.padded_edges - e
-            seg_ids = pids if pad <= 0 else torch.cat(
-                [pids, pids.new_full((pad,), -1)])
-            seg_ids = seg_ids.reshape(plan.num_segments, plan.segment_size)
-            counts = rounds.segment_true_counts(true, plan)
             pi, parents, eidx, work = rounds.forest_segment_scan_ids(
                 torch.arange(n, dtype=torch.int32, device=dev),
                 rounds.empty_forest(n, dev), rounds.empty_forest_idx(n, dev),
-                segments, seg_ids, WorkCounters.zeros(dev), counts,
-                lift_steps=self.lift_steps)
+                packed, pids, plan.segment_size, WorkCounters.zeros(dev),
+                rounds.segment_true_counts(true, plan),
+                lift_steps=self.lift_steps, span=sp)
             pi, parents, eidx, work = rounds.forest_cleanup_rounds_ids(
                 pi, parents, eidx, packed[:true], pids[:true], work,
                 true_edges=true, lift_steps=self.lift_steps)

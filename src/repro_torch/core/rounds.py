@@ -21,7 +21,9 @@ themselves are counted by ``obs.read`` under ``read.<site>``: ``sweep``
 (a compress sweep's changed flag), ``consistent`` (the cleanup loop's
 check), ``scan_counts``, ``scoped_rows``, ``scoped_counts``,
 ``forest_counts`` and ``pack`` (the row counts and ``nonzero`` packs
-the host sizes loops and buffers by). The Fig. 4 pipeline runs under
+the host sizes loops and buffers by), and ``scan_sweeps`` (the sweeps
+of an id-recording scan run in one launch where π fits the L2: there
+``read.sweep`` counts none of them). The Fig. 4 pipeline runs under
 the spans ``cc.scan`` and ``cc.cleanup``, the tree-aware delete under
 ``dyn.forest.skeleton`` and ``dyn.forest.replace``; on torch ops each
 ends on a read, so its host time is the phase's wall time (a fused
@@ -626,43 +628,113 @@ def forest_cleanup_rounds_ids(pi: torch.Tensor, parents: torch.Tensor,
     return pi, pbuf[:n], ebuf[:n], work
 
 
+def forest_scan_fits_l2(num_nodes: int, l2_bytes: int) -> bool:
+    """Whether π and its Jacobi double buffer, 8 B a vertex, fit in an
+    L2 of ``l2_bytes``: the gate of ``forest_segment_scan_ids``'s device
+    loop.
+
+    The gate is not where the device loop stops paying: on an H100 it
+    ran usa-osm's skeleton scan (23,990,404 vertices, π in device
+    memory, 117,321 sweeps) in 9.4 s against the host loop's 69.4 s.
+    It is where the forest route is the right route. A graph this
+    sparse and this large (a road network) reaches that route only
+    because the delete policy's |E| counts inserts and never deletes
+    (as the reference's does, which parity pins), and there a faster
+    forest tick lets more forest ticks into a stream: a device loop on
+    such a graph raised a churning session's tick p90 ~17x. The host
+    loop can go, and this gate with it, once the policy counts the
+    deletes or a workload takes the forest route beyond the L2 on its
+    own."""
+    return 8 * num_nodes <= l2_bytes
+
+
+def forest_scan_loop(num_nodes: int, device) -> str:
+    """Where ``forest_segment_scan_ids`` runs its sweeps over ``num_nodes``
+    vertices on ``device``: ``"device"`` (one cooperative launch of the
+    fused kernel's forest body) on CUDA when ``forest_scan_fits_l2``
+    holds for the card's L2, else ``"host"`` (a flag read after each
+    sweep)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "host"
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    return "device" if forest_scan_fits_l2(num_nodes, l2) else "host"
+
+
 def forest_segment_scan_ids(pi: torch.Tensor, parents: torch.Tensor,
-                            parent_eidx: torch.Tensor,
-                            segments: torch.Tensor, seg_ids: torch.Tensor,
+                            parent_eidx: torch.Tensor, edges: torch.Tensor,
+                            edge_ids: torch.Tensor, segment_size: int,
                             work: WorkCounters, true_counts: torch.Tensor,
                             lift_steps: int = 2,
                             bill_nodes: int | torch.Tensor | None = None,
+                            span=None,
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor, WorkCounters]:
     """``forest_segment_scan`` threading the log-row table (the forest
     rebuild over the surviving EdgeLog and the skeleton phase of the
-    tree-aware delete). A segment's true rows are its first
-    ``true_counts`` rows; only they are hooked (see above). The tables
-    are recorded in place into one sentinel-extended copy for the whole
-    scan, and the counters added once at its end.
+    tree-aware delete). Segment i is the rows of ``edges`` [R, 2] and
+    ``edge_ids`` [R] from ``i * segment_size`` on; only its first
+    ``true_counts`` rows are hooked (see above). The tables are recorded
+    in place into one sentinel-extended copy for the whole scan, and the
+    counters added once at its end.
 
-    On CUDA, once a full segment has run eagerly, the full segments
-    replay as CUDA graphs (``_GraphedSegment``): the same ops, with the
-    host issuing a few replays a segment instead of some forty
-    launches."""
+    Where ``forest_scan_loop`` says ``"device"``, the whole scan is one
+    launch (``fused_forest_scan``) that keeps each segment's sweep count
+    on the device; the host reads their sum once (``read.scan_sweeps``).
+    Elsewhere the host drives it. On CUDA, once a full segment has run
+    eagerly, the full segments replay as CUDA graphs
+    (``_GraphedSegment``): the same ops, with the host issuing a few
+    replays a segment instead of some forty launches. Results and
+    counters are the same either way; ``span``, the caller's phase span
+    if given, is tagged with the loop."""
     n = pi.shape[0]
     fuel = compress_fuel(n)
     pbuf, ebuf = _with_sentinel(parents), _with_sentinel(parent_eidx)
     # the callers size the segments on the host: a host tensor's list is
     # no read of the device
-    counts = true_counts.tolist() if true_counts.device != pi.device \
-        else obs.read("forest_counts", lambda: true_counts.tolist())
+    if true_counts.device != pi.device:
+        counts = true_counts.tolist()
+    else:
+        counts = obs.read("forest_counts", lambda: true_counts.tolist())
+    loop = forest_scan_loop(n, pi.device)
+    if span is not None:
+        span.tag(loop=loop)
+    if loop == "device":
+        from repro_torch.kernels.cc_fused.ops import fused_forest_scan
+        pi, seg_sweeps = fused_forest_scan(
+            pi, pbuf[:n], ebuf[:n], edges, edge_ids,
+            torch.tensor(counts, dtype=torch.int32),
+            segment_size=segment_size, lift_steps=lift_steps, fuel=fuel)
+        sweeps = obs.read("scan_sweeps", lambda: int(seg_sweeps.sum()))
+    else:
+        pi, sweeps = _forest_scan_host(pi, pbuf, ebuf, edges, edge_ids,
+                                       segment_size, counts, lift_steps,
+                                       fuel)
+    work = work.add(hook_ops=sum(counts) * (1 + lift_steps),
+                    hook_rounds=len(counts), jump_sweeps=sweeps,
+                    jump_ops=_sweep_bill(n, bill_nodes, sweeps))
+    return pi, pbuf[:n], ebuf[:n], work
+
+
+def _forest_scan_host(pi: torch.Tensor, pbuf: torch.Tensor,
+                      ebuf: torch.Tensor, edges: torch.Tensor,
+                      edge_ids: torch.Tensor, size: int, counts: list,
+                      lift_steps: int, fuel: int) -> tuple[torch.Tensor, int]:
+    """The host loop of ``forest_segment_scan_ids`` over sentinel-extended
+    tables: returns (π, the sweeps run)."""
     sweeps = 0
     step = None
-    for seg, ids, cnt in zip(segments, seg_ids, counts):
-        full = cnt == seg.shape[0]
+    for i, cnt in enumerate(counts):
+        seg = edges[i * size:i * size + cnt]
+        ids = edge_ids[i * size:i * size + cnt]
+        full = cnt == size
         if step is not None and full:
             sweeps += step(seg, ids, fuel)
             continue
         if cnt:
-            pi, hi, rec = _forest_hook(pi, seg[:cnt], lift_steps)
-            _record_rows_(pbuf, hi, rec, seg[:cnt])
-            _record_rows_(ebuf, hi, rec, ids[:cnt])
+            pi, hi, rec = _forest_hook(pi, seg, lift_steps)
+            _record_rows_(pbuf, hi, rec, seg)
+            _record_rows_(ebuf, hi, rec, ids)
         pi, k = jacobi_sweeps(pi, fuel)
         sweeps += k
         if step is not None:
@@ -671,10 +743,7 @@ def forest_segment_scan_ids(pi: torch.Tensor, parents: torch.Tensor,
             step = _GraphedSegment(pi, pbuf, ebuf, cnt, lift_steps)
         if step is not None:
             pi = step.pi
-    work = work.add(hook_ops=sum(counts) * (1 + lift_steps),
-                    hook_rounds=len(counts), jump_sweeps=sweeps,
-                    jump_ops=_sweep_bill(n, bill_nodes, sweeps))
-    return pi, pbuf[:n], ebuf[:n], work
+    return pi, sweeps
 
 
 class _GraphedSegment:
@@ -740,25 +809,23 @@ def forest_scan_rounds_ids(pi: torch.Tensor, parents: torch.Tensor,
                            work: WorkCounters, *, lift_steps: int = 2,
                            max_rounds: int = MAX_ROUNDS,
                            bill_nodes: int | torch.Tensor | None = None,
-                           segment_size: int = 512,
+                           segment_size: int = 512, span=None,
                            ) -> tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor, WorkCounters]:
     """The work-efficient drive of the id-recording hook over a packed
     (true-prefix) edge list: one segment-scan pass in ``segment_size``
     row segments of the stored rows (each true row billed once, a full
-    compress after each segment), then the fixpoint cleanup loop, which
-    after the scan usually short-circuits before billing anything."""
+    compress after each segment; ``span`` as there), then the fixpoint
+    cleanup loop, which after the scan usually short-circuits before
+    billing anything."""
     cap = packed.shape[0]
     seg = min(segment_size, cap)
     num_segments = -(-cap // seg) if cap else 0
     starts = torch.arange(num_segments, dtype=torch.int32) * seg
     counts = torch.clamp(n_true - starts, 0, seg)
-    segments = (packed[i * seg:(i + 1) * seg] for i in range(num_segments))
-    seg_ids = (packed_ids[i * seg:(i + 1) * seg]
-               for i in range(num_segments))
     pi, parents, parent_eidx, work = forest_segment_scan_ids(
-        pi, parents, parent_eidx, segments, seg_ids, work, counts,
-        lift_steps=lift_steps, bill_nodes=bill_nodes)
+        pi, parents, parent_eidx, packed, packed_ids, seg, work, counts,
+        lift_steps=lift_steps, bill_nodes=bill_nodes, span=span)
     return forest_cleanup_rounds_ids(
         pi, parents, parent_eidx, packed[:n_true], packed_ids[:n_true], work,
         true_edges=n_true, lift_steps=lift_steps, max_rounds=max_rounds,
@@ -795,7 +862,8 @@ def forest_scoped_rounds(pi: torch.Tensor, parents: torch.Tensor,
 
     1. **skeleton**: hook + compress over the surviving forest edges of
        the affected components (``forest_keep``), packed and scanned in
-       1024-row segments;
+       1024-row segments (its span tagged with ``rows``, ``segments``
+       and ``loop``, where the sweeps run: ``forest_scan_loop``);
     2. **replacement search**: only the alive scoped edges whose
        endpoints still disagree after phase 1 (crossing edges) can
        reconnect fragments; they are hooked to a fixpoint, recording
@@ -823,7 +891,7 @@ def forest_scoped_rounds(pi: torch.Tensor, parents: torch.Tensor,
         pi1, parents1, eidx1, work = forest_scan_rounds_ids(
             pi0, parents0, eidx0, skel, skel_ids, n_skel, work,
             lift_steps=0, max_rounds=max_rounds, bill_nodes=bill_nodes,
-            segment_size=1024)
+            segment_size=1024, span=sp)
 
     with obs.span("dyn.forest.replace") as sp:
         crossing = edge_mask & (pi1[edges[:, 0]] != pi1[edges[:, 1]])

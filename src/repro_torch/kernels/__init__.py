@@ -15,9 +15,11 @@ Each kernel package ships:
 
 Kernel inventory:
   * cc_fused   — the WHOLE Fig. 4 segment scan (every hook round and
-                 every compress sweep) in one cooperative launch, and
-                 with a batch axis the scan of a whole shape bucket
-                 of graphs (the batched engine);
+                 every compress sweep) in one cooperative launch, the
+                 dynamic engine's id-recording scan (the spanning forest
+                 recorded as it hooks) likewise, and with a batch axis
+                 the scan of a whole shape bucket of graphs (the
+                 batched engine);
   * hook       — hook (gather, root chase, scatter-min): every edge
                  from one π snapshot on every SM, and edge tiles in
                  ascending order in one block;

@@ -1,6 +1,8 @@
 """Wrappers of the fused segment-scan kernel (``csrc/cc_fused.cu``): one
-graph's scan (``fused_segment_scan``, launches counted on ``KERNEL``)
-and a shape bucket's scan over all its graphs at once
+graph's scan (``fused_segment_scan``, launches counted on ``KERNEL``),
+the dynamic engine's id-recording scan that records the spanning forest
+as it hooks (``fused_forest_scan``, on ``FOREST``) and a shape bucket's
+scan over all its graphs at once
 (``fused_segment_scan_batched``, counted on ``BATCHED``: the block body,
 one graph a block with pi in shared memory, on ``BLOCK``; the grid body
 for larger graphs on ``GRID``; ``batched_body`` names the one a bucket
@@ -13,12 +15,15 @@ import torch
 
 from repro_torch.core.rounds import compress_fuel
 from repro_torch.kernels import Bodies, Kernel, check_int32, stream_of
-from repro_torch.kernels.cc_fused.ref import (ref_segment_scan,
+from repro_torch.kernels.cc_fused.ref import (ref_forest_scan,
+                                              ref_segment_scan,
                                               ref_segment_scan_batched)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = Kernel("cc_fused", "cc_fused_scan",
                 [_P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P])
+FOREST = Kernel("cc_fused", "cc_fused_forest_scan",
+                [_P] * 12 + [_L, _I, _L, _I, _I, _P])
 BLOCK = Kernel("cc_fused", "cc_fused_scan_batched_block",
                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 GRID = Kernel("cc_fused", "cc_fused_scan_batched",
@@ -83,6 +88,84 @@ def fused_segment_scan(pi: torch.Tensor, segments: torch.Tensor,
                       out.data_ptr(), scratch.data_ptr(), hilo.data_ptr(),
                       flags.data_ptr(), sweeps.data_ptr(), pi.shape[0],
                       num_segments, seg, lift_steps, fuel, stream_of(pi))
+    return out, sweeps
+
+
+def fused_forest_scan(pi: torch.Tensor, parents: torch.Tensor,
+                      parent_eidx: torch.Tensor, edges: torch.Tensor,
+                      edge_ids: torch.Tensor, true_counts: torch.Tensor, *,
+                      segment_size: int, lift_steps: int, fuel: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The id-recording segment scan in ONE kernel launch.
+
+    Args:
+      pi: int32 [V] parent workspace (not modified).
+      parents, parent_eidx: int32 [V, 2] and [V] forest tables; each
+        root a hook retires takes its winning row's edge and id, in
+        place.
+      edges, edge_ids: int32 [R, 2] and [R]: segment i is rows
+        ``i * segment_size`` onwards, of which only the first
+        ``true_counts[i]`` are hooked.
+      true_counts: int [S] on the CPU (the sizes the host planned), each
+        at most ``segment_size`` and within R (``ValueError``
+        otherwise).
+      fuel: compress fuel per segment.
+
+    Returns:
+      (pi', sweeps int32 [S]), equal to ``ref_forest_scan``'s, tables
+      included. A CPU ``pi`` runs that plain version; a CUDA one the
+      kernel.
+    """
+    true_counts = true_counts.to(torch.int32)
+    starts = torch.arange(true_counts.shape[0]) * segment_size
+    if true_counts.device.type != "cpu" or segment_size < 1 or (
+            true_counts.numel() and (
+                int(true_counts.min()) < 0
+                or int(true_counts.max()) > segment_size
+                or int((starts + true_counts).max()) > edges.shape[0])):
+        raise ValueError(f"true_counts must be host counts in [0, "
+                         f"{segment_size}] within {edges.shape[0]} rows")
+    if pi.device.type == "cpu":
+        return ref_forest_scan(pi, parents, parent_eidx, edges, edge_ids,
+                               true_counts, segment_size=segment_size,
+                               lift_steps=lift_steps, fuel=fuel)
+    n = pi.shape[0]
+    for name, t, ndim in (("pi", pi, 1), ("parents", parents, 2),
+                          ("parent_eidx", parent_eidx, 1),
+                          ("edges", edges, 2), ("edge_ids", edge_ids, 1)):
+        check_int32(name, t, ndim)
+    num_segments = true_counts.shape[0]
+    if parents.shape != (n, 2) or parent_eidx.shape != (n,) \
+            or edges.shape[1:] != (2,) or edge_ids.shape != edges.shape[:1]:
+        raise ValueError(f"pi {tuple(pi.shape)}, parents "
+                         f"{tuple(parents.shape)}, parent_eidx "
+                         f"{tuple(parent_eidx.shape)}, edges "
+                         f"{tuple(edges.shape)} and edge_ids "
+                         f"{tuple(edge_ids.shape)} do not match")
+    if len({t.device for t in (pi, parents, parent_eidx, edges,
+                               edge_ids)}) != 1:
+        raise ValueError("pi, the tables and the edges must share a "
+                         "device")
+    out = pi.clone()
+    sweeps = torch.zeros(num_segments, dtype=torch.int32, device=pi.device)
+    if n == 0 or num_segments == 0:
+        return out, sweeps
+    scratch = torch.empty_like(pi)
+    hilo = torch.empty((2 * segment_size, 2), dtype=torch.int32,
+                       device=pi.device)
+    winner = torch.full_like(pi, _INT32_LIMIT - 1)
+    flags = torch.zeros(num_segments * (fuel + 1), dtype=torch.int32,
+                        device=pi.device)
+    landed = flags[num_segments * fuel:]
+    counts = true_counts.to(pi.device)
+    with torch.cuda.device(pi.device):
+        FOREST.launch(edges.data_ptr(), edge_ids.data_ptr(),
+                      counts.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr(), hilo.data_ptr(), winner.data_ptr(),
+                      parents.data_ptr(), parent_eidx.data_ptr(),
+                      flags.data_ptr(), landed.data_ptr(), sweeps.data_ptr(),
+                      n, num_segments, segment_size, lift_steps, fuel,
+                      stream_of(pi))
     return out, sweeps
 
 

@@ -31,6 +31,29 @@ def ref_segment_scan(pi: torch.Tensor, segments: torch.Tensor,
     return pi, torch.tensor(sweeps, dtype=torch.int32, device=pi.device)
 
 
+def ref_forest_scan(pi: torch.Tensor, parents: torch.Tensor,
+                    parent_eidx: torch.Tensor, edges: torch.Tensor,
+                    edge_ids: torch.Tensor, true_counts: torch.Tensor, *,
+                    segment_size: int, lift_steps: int, fuel: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """For each segment i (rows ``i * segment_size`` onwards): hook its
+    first ``true_counts[i]`` rows with the id-recording forest hook
+    (each retired root's winning row and id into ``parents`` and
+    ``parent_eidx``, in place), then Jacobi sweeps to a fixpoint under
+    ``fuel``. Returns (π', sweeps int32 [S])."""
+    sweeps = []
+    for i, cnt in enumerate(true_counts.tolist()):
+        rows = slice(i * segment_size, i * segment_size + cnt)
+        if cnt:
+            pi, hi, rec = rounds._forest_hook(pi, edges[rows], lift_steps)
+            parents.copy_(rounds._record_rows(parents, hi, rec, edges[rows]))
+            parent_eidx.copy_(rounds._record_rows(parent_eidx, hi, rec,
+                                                  edge_ids[rows]))
+        pi, n = rounds.jacobi_sweeps(pi, fuel)
+        sweeps.append(n)
+    return pi, torch.tensor(sweeps, dtype=torch.int32, device=pi.device)
+
+
 def ref_segment_scan_batched(pi: torch.Tensor, segments: torch.Tensor,
                              true_counts: torch.Tensor, *,
                              lift_steps: int = 2, fuel: int | None = None

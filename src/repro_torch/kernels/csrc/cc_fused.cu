@@ -6,10 +6,12 @@
 // axis, ops.fused_segment_scan_batched: the batched engine's scan of one
 // shape bucket, which the reference runs as its jnp rounds under vmap).
 // On the TPU the grid runs in order over segments and pi stays resident
-// in VMEM. Three bodies here:
+// in VMEM. Four bodies here:
 //   * cc_fused_kernel (one graph): the blocks of one co-resident
 //     cooperative grid walk the segments together and meet at grid-wide
 //     barriers, with pi in device memory;
+//   * cc_fused_forest_kernel: the same walk with the spanning forest
+//     recorded as it hooks (the dynamic engine's id-recording scan);
 //   * cc_fused_batched_block_kernel (a bucket of graphs whose two pi
 //     buffers fit one block's shared memory, V_pad <= 16,384): one block
 //     a graph, pi in shared memory, block barriers only;
@@ -44,6 +46,8 @@
 // barriers replace the host round trip and kernel launch of every step;
 // the random gathers are left as they are. The block body's bound and
 // design are given above it.
+#include <climits>
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -111,6 +115,192 @@ cc_fused_kernel(const int* __restrict__ segs, const int* __restrict__ counts,
     if (tid == 0) sweeps[i] = n;
   }
   // 4. the result must end in pi_a
+  if (A != pi_a) {
+    for (long long v = tid; v < num_nodes; v += stride)
+      __stcg(pi_a + v, __ldcg(A + v));
+  }
+}
+
+
+// The forest variant (entry cc_fused_forest_scan): the id-recording
+// segment scan of the dynamic engine (repro_torch.core.rounds
+// forest_segment_scan_ids; the reference runs it as jnp rounds under
+// lax.scan), which also records the spanning forest. It replaces that
+// scan's host loop, a flag read after every Jacobi sweep, where pi and
+// its double buffer fit in the L2 (the caller's gate): there a sweep
+// costs a few microseconds, and the host's read and relaunch were the
+// whole tick. Segment i is rows [i * seg, i * seg + counts[i]) of
+// edges [R, 2] and ids [R]; only those rows are hooked. For each
+// segment, in order:
+//   G. gather from one snapshot of A: (hi, lo) with lift_steps levels
+//      of root chase, stored with hi = -1 where lo >= A[hi] (a write
+//      that cannot land, and a row that cannot win); in the same phase,
+//      record the winners of segment i - 1 (below);
+//   H. scatter-min of the live rows, skipping a write whose lo is not
+//      below the live label; a block that wrote sets landed[i]; grid
+//      barrier. When the last sweep changed nothing, B is a copy of A:
+//      the scatter goes into B in G's own phase and B becomes A after
+//      the barrier. Otherwise (the first segment, or fuel ran out) a
+//      barrier parts G from a scatter into A;
+//   S. if nothing landed and the last sweep changed nothing, A is at
+//      its fixpoint: the one sweep that the host loop runs would change
+//      nothing, so it is billed (sweeps[i] = 1) and not run. Otherwise
+//      Jacobi sweeps as in cc_fused_kernel, and in the phase of the
+//      first one (A is stable there: the sweeps write B) every live row
+//      with A[hi] == lo is a winner and atomicMin(winner[hi], j) keeps
+//      the lowest slot.
+// Recording segment i in phase G of segment i + 1 (hilo alternates
+// between two buffers) saves a barrier a segment: the slot j with
+// winner[hi] == j writes parents[hi] = its (u, v) and parent_eidx[hi]
+// = its id, then resets winner[hi], which no other slot of the segment
+// can take for its own. The last segment records after the loop. The
+// winner of a row is the host's (the scatter landed on it and lowered
+// the label below the snapshot; the lowest slot of a tie), so pi, the
+// tables and sweeps are bit-equal to the host loop.
+//
+// Bound on this card: with pi L2-resident by the gate, a sweep is a
+// coalesced read and write of pi and a gather of pi[pi[v]] in the L2,
+// then a grid barrier; a hook is a few hundred rows' gathers. Under
+// min-id hooking most vertices point at the few lowest labels (the
+// roots of the largest components), so the gather sends every warp to
+// the same few L2 lines, and those requests queue on one slice: each
+// block copies labels [0, kHot) into shared memory at the start of a
+// sweep and gathers them there (on an H100, a kron-logn21 skeleton
+// scan of 3,576 sweeps over 2,097,152 vertices: 85 ms without the copy,
+// 33 ms with it, at 256 threads a block). Blocks of 1,024 threads, one
+// an SM, cut the barrier's arrivals (26 ms). Barriers, one a segment
+// and one a sweep, are about 8 ms of it.
+__device__ __forceinline__ void forest_record(
+    const int* __restrict__ edges, const int* __restrict__ ids,
+    const int2* hilo, int* winner, int* parents, int* parent_eidx,
+    long long base, int cnt, long long tid, long long stride) {
+  for (long long j = tid; j < cnt; j += stride) {
+    const int hi = hilo[j].x;
+    if (hi < 0 || __ldcg(winner + hi) != (int)j) continue;
+    const long long row = base + j;
+    __stcg(parents + 2 * (long long)hi, __ldg(edges + 2 * row));
+    __stcg(parents + 2 * (long long)hi + 1, __ldg(edges + 2 * row + 1));
+    __stcg(parent_eidx + hi, __ldg(ids + row));
+    __stcg(winner + hi, INT_MAX);
+  }
+}
+
+constexpr int kForestThreads = 1024;
+constexpr int kUnroll = 4;
+constexpr int kHot = 1024;
+
+__global__ void __launch_bounds__(kForestThreads)
+cc_fused_forest_kernel(const int* __restrict__ edges,
+                       const int* __restrict__ ids,
+                       const int* __restrict__ counts, int* pi_a, int* pi_b,
+                       int2* hilo, int* winner, int* parents,
+                       int* parent_eidx, int* flags, int* landed,
+                       int* __restrict__ sweeps, long long num_nodes,
+                       int num_segments, long long seg, int lift_steps,
+                       int fuel) {
+  __shared__ int hot[kHot];
+  cg::grid_group grid = cg::this_grid();
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const int hot_n = num_nodes < kHot ? (int)num_nodes : kHot;
+  int* A = pi_a;
+  int* B = pi_b;
+  bool fixed = false;  // the last sweep run changed nothing: B == A
+  for (int i = 0; i < num_segments; ++i) {
+    const int cnt = counts[i];
+    const long long base = seg * i;
+    int2* h = hilo + (i & 1) * seg;
+    // G. gather from the snapshot A; record segment i - 1
+    if (i > 0)
+      forest_record(edges, ids, hilo + ((i - 1) & 1) * seg, winner, parents,
+                    parent_eidx, base - seg, counts[i - 1], tid, stride);
+    for (long long j = tid; j < cnt; j += stride) {
+      int pu = __ldcg(A + __ldg(edges + 2 * (base + j)));
+      int pv = __ldcg(A + __ldg(edges + 2 * (base + j) + 1));
+      for (int k = 0; k < lift_steps; ++k) {
+        pu = __ldcg(A + pu);
+        pv = __ldcg(A + pv);
+      }
+      const int hi = max(pu, pv), lo = min(pu, pv);
+      h[j] = make_int2(lo < __ldcg(A + hi) ? hi : -1, lo);
+    }
+    // H. scatter-min of the live rows, no-op writes skipped: into B, the
+    // copy of the snapshot, in the same phase; else into A after a
+    // barrier
+    int* P = fixed ? B : A;
+    if (!fixed) grid.sync();
+    int wrote = 0;
+    for (long long j = tid; j < cnt; j += stride) {
+      const int2 r = h[j];
+      if (r.x >= 0 && r.y < __ldcg(P + r.x)) {
+        atomicMin(P + r.x, r.y);
+        wrote = 1;
+      }
+    }
+    if (__syncthreads_or(wrote) && threadIdx.x == 0) atomicExch(landed + i, 1);
+    grid.sync();
+    B = P == B ? A : B;
+    A = P;
+    // S. sweeps, the winners marked in the first one's phase
+    if (fixed && __ldcg(landed + i) == 0) {
+      if (tid == 0) sweeps[i] = 1;
+      continue;
+    }
+    for (long long j = tid; j < cnt; j += stride) {
+      const int2 r = h[j];
+      if (r.x >= 0 && __ldcg(A + r.x) == r.y) atomicMin(winner + r.x, (int)j);
+    }
+    int n = 0;
+    fixed = false;
+    while (n < fuel) {
+      // the lowest labels, the roots of the largest components under
+      // min-id hooking, from shared memory: a gather of the same entry
+      // by every warp would queue on one L2 slice
+      for (int k = threadIdx.x; k < hot_n; k += blockDim.x)
+        hot[k] = __ldcg(A + k);
+      __syncthreads();
+      // kUnroll vertices a thread in flight: their loads of A[v], then
+      // of A[A[v]], then the stores (a store is a compiler barrier)
+      int changed = 0;
+      for (long long v0 = tid; v0 < num_nodes; v0 += kUnroll * stride) {
+        int a[kUnroll], b[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const long long v = v0 + k * stride;
+          a[k] = v < num_nodes ? __ldcg(A + v) : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k)
+          b[k] = a[k] < hot_n ? hot[a[k]] : __ldcg(A + a[k]);
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const long long v = v0 + k * stride;
+          if (v < num_nodes) {
+            __stcg(B + v, b[k]);
+            changed |= (b[k] != a[k]);
+          }
+        }
+      }
+      int* flag = flags + (long long)i * fuel + n;
+      if (__syncthreads_or(changed) && threadIdx.x == 0) atomicExch(flag, 1);
+      grid.sync();
+      ++n;
+      if (__ldcg(flag) == 0) {
+        fixed = true;
+        break;  // B == A: either buffer holds pi
+      }
+      int* t = A;
+      A = B;
+      B = t;
+    }
+    if (tid == 0) sweeps[i] = n;
+  }
+  // the last segment's winners, and the result into pi_a (the phase
+  // before ended on a barrier)
+  if (num_segments > 0)
+    forest_record(edges, ids, hilo + ((num_segments - 1) & 1) * seg, winner,
+                  parents, parent_eidx, seg * (num_segments - 1),
+                  counts[num_segments - 1], tid, stride);
   if (A != pi_a) {
     for (long long v = tid; v < num_nodes; v += stride)
       __stcg(pi_a + v, __ldcg(A + v));
@@ -385,6 +575,62 @@ int cc_fused_scan(const void* segs, const void* counts, void* pi_a,
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(cc_fused_kernel), dim3((unsigned)blocks),
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The forest body: edges [R, 2] and ids [R] (segment i is rows i * seg
+// to i * seg + counts[i]), counts [S]; pi_a holds the input pi on entry
+// and the result on exit; pi_b is [V] scratch, hilo [2 * seg] int2
+// scratch, winner [V] ints all INT_MAX (left so), flags [S * fuel] and
+// landed [S] zeroed ints; parents [V, 2] and parent_eidx [V] take the
+// recorded rows in place; sweeps [S] output. Launch rules as
+// cc_fused_scan's.
+int cc_fused_forest_scan(const void* edges, const void* ids,
+                         const void* counts, void* pi_a, void* pi_b,
+                         void* hilo, void* winner, void* parents,
+                         void* parent_eidx, void* flags, void* landed,
+                         void* sweeps, long long num_nodes, int num_segments,
+                         long long seg, int lift_steps, int fuel,
+                         void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int coop = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, cc_fused_forest_kernel, kForestThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const long long items = seg > num_nodes ? seg : num_nodes;
+  long long want = (items + kForestThreads - 1) / kForestThreads;
+  long long blocks = (long long)per_sm * sms;
+  if (want < blocks) blocks = want < 1 ? 1 : want;
+
+  const int* a_edges = static_cast<const int*>(edges);
+  const int* a_ids = static_cast<const int*>(ids);
+  const int* a_counts = static_cast<const int*>(counts);
+  int* a_pi = static_cast<int*>(pi_a);
+  int* a_pib = static_cast<int*>(pi_b);
+  int2* a_hilo = static_cast<int2*>(hilo);
+  int* a_winner = static_cast<int*>(winner);
+  int* a_parents = static_cast<int*>(parents);
+  int* a_eidx = static_cast<int*>(parent_eidx);
+  int* a_flags = static_cast<int*>(flags);
+  int* a_landed = static_cast<int*>(landed);
+  int* a_sweeps = static_cast<int*>(sweeps);
+  void* args[] = {&a_edges, &a_ids,    &a_counts, &a_pi,       &a_pib,
+                  &a_hilo,  &a_winner, &a_parents, &a_eidx,    &a_flags,
+                  &a_landed, &a_sweeps, &num_nodes, &num_segments, &seg,
+                  &lift_steps, &fuel};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(cc_fused_forest_kernel),
+      dim3((unsigned)blocks), dim3(kForestThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -40,7 +40,7 @@ from repro_torch.core import cc, rounds
 from repro_torch.core.segmentation import plan_segmentation
 from repro_torch.core.unionfind import connected_components_scipy
 from repro_torch.graphs.device import DeviceGraph
-from repro_torch.graphs.generators import table1_scaled
+from repro_torch.graphs.generators import rmat, table1_scaled
 from repro_torch.kernels.cc_fused import ops as cc_ops, ref as cc_ref
 from repro_torch.kernels.hook import ops as hook_ops, ref as hook_ref
 from repro_torch.kernels.embedding_bag import ops as eb_ops, ref as eb_ref
@@ -1079,22 +1079,193 @@ def _dynamic_stream(device, route: str, n: int, edges: np.ndarray):
 def test_dynamic_stream_on_card_matches_cpu(dev, name, route):
     """The same stream on the card and on the CPU: labels, version and
     all five counters equal after every tick; on the fused route the
-    kernel launched at least once."""
+    kernel launched at least once, on the forest route its forest body
+    (both graphs' π fit the L2)."""
     g = table1_scaled(name, scale=0.002, seed=1)
     edges = np.asarray(g.edges, np.int32)
     cc_ops.KERNEL.launches = 0
+    forest = cc_ops.FOREST.launches
     got, s = _dynamic_stream(dev, route, g.num_nodes, edges)
     launches = cc_ops.KERNEL.launches
+    forest = cc_ops.FOREST.launches - forest
     want, _ = _dynamic_stream("cpu", route, g.num_nodes, edges)
     for i, ((gl, gv, gw), (wl, wv, ww)) in enumerate(zip(got, want)):
         assert torch.equal(gl, wl), i
         assert (gv, gw) == (wv, ww), i
     if route == "tombstone-delete-fused":
         assert launches >= 1
+    if route == "tombstone-delete-forest":
+        assert forest >= 1
     survivors = s.graph()
     ref = connected_components_scipy(
         survivors.edges[:survivors.true_edges].cpu().numpy(), g.num_nodes)
     np.testing.assert_array_equal(s.labels.cpu().numpy(), ref)
+
+
+# -- the forest body: the id-recording scan in one launch ---------------------
+
+def _forest_scan_case(case: str):
+    """(pi0, edges, ids, segment size, counts, lift_steps) as numpy /
+    host tensors, seeded:
+    * ``skeleton``: a Kronecker graph's rows packed into a buffer |V|
+      rows long, as the skeleton phase packs the forest: 1,024-row
+      segments, the tail ones empty, over a compressed π whose other
+      vertices keep their labels;
+    * ``chain``: a path in order, so each segment hooks a 1,024-long
+      chain (about 11 sweeps a segment), lifted twice;
+    * ``ties``: 300 copies of one edge in both orientations among random
+      rows of one segment, and 200 of another in a later one, ids
+      shuffled: the lowest slot of each tie must win."""
+    n, seg = 1 << 15, 1024
+    pi = np.arange(n, dtype=np.int32)
+    if case == "skeleton":
+        g = rmat(15, 8, seed=3)
+        rows = np.asarray(g.edges, np.int32)[:20_000]
+        keep = np.random.default_rng(4).random(n) < 0.3
+        pi[keep] = np.minimum(pi[keep], 7)       # roots 0-7 keep labels
+        lift = 0
+    elif case == "chain":
+        rows = np.stack([np.arange(n - 1), np.arange(1, n)], 1)
+        lift = 2
+    else:
+        rng = np.random.default_rng(5)
+        rows = rng.integers(0, n, (4 * seg, 2))
+        tie = rng.choice(seg, 300, replace=False)
+        rows[tie] = np.where(rng.random((300, 1)) < 0.5, [7, 3], [3, 7])
+        tie = 2 * seg + rng.choice(seg, 200, replace=False)
+        rows[tie] = [900, 40]
+        lift = 0
+    rows = rows.astype(np.int32)
+    n_true = rows.shape[0]
+    cap = n if case == "skeleton" else n_true
+    edges = np.zeros((cap, 2), np.int32)
+    edges[:n_true] = rows
+    ids = np.full(cap, -1, np.int32)
+    ids[:n_true] = np.random.default_rng(6).permutation(n_true)
+    counts = torch.clamp(n_true - torch.arange(-(-cap // seg)) * seg, 0, seg)
+    return pi, edges, ids, seg, counts, lift
+
+
+def _forest_scan_on(device, pi, edges, ids, seg, counts, lift):
+    """``forest_segment_scan_ids`` from empty tables on ``device``: (pi,
+    parents, parent_eidx, the five counters as ints)."""
+    n = pi.shape[0]
+    out = rounds.forest_segment_scan_ids(
+        torch.from_numpy(pi).to(device), rounds.empty_forest(n, device),
+        rounds.empty_forest_idx(n, device),
+        torch.from_numpy(edges).to(device), torch.from_numpy(ids).to(device),
+        seg, rounds.WorkCounters.zeros(device), counts, lift_steps=lift)
+    return [t.cpu() for t in out[:3]] + [out[3].as_ints()]
+
+
+def _counter_delta(before: dict) -> dict:
+    from repro_torch.obs import trace as obs
+    now = obs.tracer().counters
+    return {k: now.get(k, 0) - before.get(k, 0)
+            for k in ("read.sweep", "read.scan_sweeps")}
+
+
+@pytest.mark.parametrize("case", ("skeleton", "chain", "ties"))
+def test_forest_device_scan_matches_host_loop_and_cpu(dev, monkeypatch,
+                                                      case):
+    """The one-launch scan against the host loop on the card (gate
+    forced off) and the CPU: π, ``parents``, ``parent_eidx`` and all
+    five counters bit-equal; the engaged scan launched once, read its
+    sweeps once and no sweep flag."""
+    from repro_torch.obs import trace as obs
+    args = _forest_scan_case(case)
+    assert rounds.forest_scan_loop(args[0].shape[0], dev) == "device"
+    launches = cc_ops.FOREST.launches
+    before = dict(obs.tracer().counters)
+    got = _forest_scan_on(dev, *args)
+    assert cc_ops.FOREST.launches == launches + 1
+    assert _counter_delta(before) == {"read.sweep": 0, "read.scan_sweeps": 1}
+    with monkeypatch.context() as m:
+        m.setattr(rounds, "forest_scan_fits_l2", lambda *a: False)
+        before = dict(obs.tracer().counters)
+        host = _forest_scan_on(dev, *args)
+        assert _counter_delta(before)["read.sweep"] == \
+            host[3]["jump_sweeps"]
+    assert cc_ops.FOREST.launches == launches + 1
+    cpu = _forest_scan_on("cpu", *args)
+    for want in (host, cpu):
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w)
+        assert got[3] == want[3]
+    assert (got[1][:, 0] >= 0).sum() > 0
+    if case == "chain":
+        assert got[3]["jump_sweeps"] > 8 * got[3]["hook_rounds"]
+    if case == "ties":
+        # the lowest slot of each tie wins row 7 and row 900
+        n_true = int(args[4].sum())
+        rows, ids = args[1][:n_true], args[2][:n_true]
+        for hi, lo in ((7, 3), (900, 40)):
+            slot = np.flatnonzero(np.maximum(rows[:, 0], rows[:, 1]) == hi)
+            slot = slot[np.minimum(rows[slot, 0], rows[slot, 1]) == lo][0]
+            assert got[1][hi].tolist() == rows[slot].tolist()
+            assert int(got[2][hi]) == ids[slot]
+
+
+def test_forest_device_scan_with_fuel_exhausted_matches_plain(dev):
+    """Two sweeps a segment cannot flatten a 1,024-long chain: the kernel
+    stops mid-segment, carries the unflattened π into the next hook, and
+    every segment's count, π and the tables equal the plain version's."""
+    pi, edges, ids, seg, counts, lift = _forest_scan_case("chain")
+    n = pi.shape[0]
+    out = {}
+    for d in (dev, "cpu"):
+        parents = rounds.empty_forest(n, d)
+        eidx = rounds.empty_forest_idx(n, d)
+        p, sw = cc_ops.fused_forest_scan(
+            torch.from_numpy(pi).to(d), parents, eidx,
+            torch.from_numpy(edges).to(d), torch.from_numpy(ids).to(d),
+            counts, segment_size=seg, lift_steps=0, fuel=2)
+        out[str(d)] = [t.cpu() for t in (p, parents, eidx, sw)]
+    got, want = out[str(dev)], out["cpu"]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[3] == 2).all()
+
+
+@pytest.mark.parametrize("name", ("usa-osm", "kron-logn21"))
+def test_forest_rebuild_device_scan_matches_host_loop_and_cpu(dev,
+                                                              monkeypatch,
+                                                              name):
+    """``ensure_forest`` over the log's adaptive segments, lifted twice:
+    labels, ``parents``, ``parent_eidx`` and the five counters of the
+    device loop equal the host loop's and the CPU's; the rebuild span's
+    ``loop`` tag names the loop that ran."""
+    from repro_torch.core.incremental import DynamicCC
+    from repro_torch.obs import trace as obs
+    g = table1_scaled(name, scale=0.002, seed=1)
+    edges = np.asarray(g.edges, np.int32)
+
+    def rebuilt(device, loop):
+        dyn = DynamicCC(g.num_nodes, lift_steps=2, device=device)
+        dyn.insert(edges)
+        dyn.work
+        dyn._forest_valid = False
+        obs.enable()
+        obs.tracer().reset()
+        try:
+            dyn.ensure_forest()
+            (span,) = [e for e in obs.tracer().log.events()
+                       if e["name"] == "dyn.forest.rebuild"]
+        finally:
+            obs.disable()
+        assert span["tags"]["loop"] == loop
+        return [t.cpu() for t in (dyn.labels, *dyn.forest)], dyn.work
+
+    launches = cc_ops.FOREST.launches
+    got = rebuilt(dev, "device")
+    assert cc_ops.FOREST.launches == launches + 1
+    with monkeypatch.context() as m:
+        m.setattr(rounds, "forest_scan_fits_l2", lambda *a: False)
+        host = rebuilt(dev, "host")
+    for want in (host, rebuilt("cpu", "host")):
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b)
+        assert got[1] == want[1]
 
 
 # -- the multi-shard engine and the fleet (A10) ------------------------------

@@ -20,7 +20,8 @@ from repro.kernels.multi_jump import ops as jmj_ops, ref as jmj_ref
 from repro_torch.core import rounds as tr
 from repro_torch.core.segmentation import plan_segmentation
 from repro_torch.kernels.cc_fused import ref as cc_ref
-from repro_torch.kernels.cc_fused.ops import fused_segment_scan
+from repro_torch.kernels.cc_fused.ops import (fused_forest_scan,
+                                              fused_segment_scan)
 from repro_torch.kernels.hook import ref as hook_ref
 from repro_torch.kernels.hook.ops import (hook_edges_pallas,
                                          hook_edges_snapshot)
@@ -88,6 +89,46 @@ def test_cc_fused_plain_with_exhausted_fuel_matches_pallas():
                            interpret=True)
     _eq(got[0], want[0])
     _eq(got[1], want[1])
+
+
+@pytest.mark.parametrize("lift", (0, 2))
+@pytest.mark.parametrize("n_true", (3000, 1024))
+def test_forest_scan_plain_matches_the_host_loop(n_true, lift):
+    """The forest body's plain version (the wrapper on CPU tensors)
+    against the id-recording scan's host loop, over a packed buffer
+    whose tail segments are empty: π, both tables and the sweeps."""
+    n, seg = 4096, 512
+    edges = np.zeros((n, 2), np.int32)
+    edges[:n_true] = _edges(n, n_true, seed=n_true)
+    ids = np.full(n, -1, np.int32)
+    ids[:n_true] = np.random.default_rng(lift).permutation(n_true)
+    edges, ids = torch.from_numpy(edges), torch.from_numpy(ids)
+    pi0 = torch.from_numpy(_forest(n, 3))
+    counts = torch.clamp(n_true - torch.arange(n // seg) * seg, 0, seg)
+    parents, eidx = tr.empty_forest(n), tr.empty_forest_idx(n)
+    got_pi, got_sw = fused_forest_scan(
+        pi0, parents, eidx, edges, ids, counts, segment_size=seg,
+        lift_steps=lift, fuel=tr.compress_fuel(n))
+    want_pi, want_par, want_eidx, work = tr.forest_segment_scan_ids(
+        pi0, tr.empty_forest(n), tr.empty_forest_idx(n), edges, ids, seg,
+        tr.WorkCounters.zeros("cpu"), counts, lift_steps=lift)
+    assert torch.equal(got_pi, want_pi)
+    assert torch.equal(parents, want_par) and torch.equal(eidx, want_eidx)
+    assert int((parents[:, 0] >= 0).sum()) > 0
+    assert int(got_sw.sum()) == int(work.jump_sweeps)
+    assert got_sw[-1] == 1 and got_sw.shape == (n // seg,)
+
+
+@pytest.mark.parametrize("counts", ([-1, 0], [513, 0], [512, 512, 1]))
+def test_forest_scan_refuses_counts_outside_the_rows(counts):
+    n, seg = 1024, 512
+    with pytest.raises(ValueError, match="true_counts"):
+        fused_forest_scan(torch.arange(n, dtype=torch.int32),
+                          tr.empty_forest(n), tr.empty_forest_idx(n),
+                          torch.zeros((n, 2), dtype=torch.int32),
+                          torch.zeros(n, dtype=torch.int32),
+                          torch.tensor(counts), segment_size=seg,
+                          lift_steps=0, fuel=4)
 
 
 @pytest.mark.parametrize("tile", (8, 32, 100))

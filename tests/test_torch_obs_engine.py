@@ -181,7 +181,7 @@ def test_port_only_names_cover_the_new_spans_and_counters():
     for name in ("read.sweep", "read_ns.sweep", "solver.open",
                  "solver.plan", "cc.scan", "cc.cleanup", "dyn.tombstone",
                  "dyn.scoped", "dyn.forest.rebuild", "dyn.forest.skeleton",
-                 "dyn.forest.replace"):
+                 "dyn.forest.replace", "read.scan_sweeps"):
         assert name.startswith(obs.PORT_ONLY)
     for name in ("plan.run", "solver.solve", "solver.insert",
                  "solver.delete", "service.tick", "autotune.hit",
@@ -205,12 +205,51 @@ def test_work_drains_are_told_apart(tracer):
     assert "read.work" not in tracer.counters
 
 
+@pytest.mark.parametrize("num_nodes,engages", [(2_097_152, True),
+                                                (23_990_404, False),
+                                                (173_976_100, False)])
+def test_forest_device_loop_gate_is_pi_and_its_buffer_in_the_l2(
+        num_nodes, engages):
+    """The gate reads |V| and the L2 alone: at the H100's 52,428,800 B,
+    kron-logn21's π and its Jacobi double buffer (8 B a vertex) fit;
+    usa-road's and euro-road's do not."""
+    assert rounds.forest_scan_fits_l2(num_nodes, 52_428_800) is engages
+
+
+def test_a_cpu_forest_session_never_reaches_the_kernel_wrapper(
+        tracer, monkeypatch):
+    """On the CPU the forest rebuild and the skeleton phase keep the
+    host loop: the kernel wrapper is never called, no sweep sum is read
+    back, and both spans say so."""
+    from repro_torch.kernels.cc_fused import ops as cc_ops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path reached the kernel wrapper")
+    monkeypatch.setattr(cc_ops, "fused_forest_scan", refuse)
+    launches = cc_ops.FOREST.launches
+    s = _session(policy.DYNAMIC_DELETE_FOREST)
+    obs.enable()
+    s.delete(_edges(V, 2500, 1)[:400])
+    obs.disable()
+    assert s.last_method == policy.DYNAMIC_DELETE_FOREST
+    assert rounds.forest_scan_loop(V, "cpu") == "host"
+    tags = {e["name"]: e.get("tags", {}) for e in tracer.log.events()}
+    assert tags["dyn.forest.rebuild"]["loop"] == "host"
+    assert tags["dyn.forest.skeleton"]["loop"] == "host"
+    assert "read.scan_sweeps" not in tracer.counters
+    assert tracer.counters["read.sweep"] > 0
+    assert cc_ops.FOREST.launches == launches
+
+
 @pytest.mark.cuda
-def test_graphed_segment_sweep_reads_equal_the_billed_sweeps(tracer):
-    """On the card the full segments of the id-recording scan replay as
-    CUDA graphs: their flag reads still count one a sweep."""
+def test_graphed_segment_sweep_reads_equal_the_billed_sweeps(
+        tracer, monkeypatch):
+    """On the card, where the device loop's gate is off, the full
+    segments of the id-recording scan replay as CUDA graphs: their flag
+    reads still count one a sweep."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA graphs have no CPU mode")
+    monkeypatch.setattr(rounds, "forest_scan_fits_l2", lambda *a: False)
     dev = torch.device("cuda")
     n, seg = 1 << 14, 1024
     edges = torch.from_numpy(_edges(n, 8 * seg, 11)).to(dev)
