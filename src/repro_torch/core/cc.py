@@ -20,8 +20,9 @@ two kernel backends:
   * ``sampled``, ``sampled_fused`` — the k-out sampling engines
                        (``repro_torch.core.sampled``).
 
-``solve_forest`` runs the forest-recording twins of the hook-round
-variants and returns the spanning forest beside the labels.
+``solve_forest`` runs the hook-round variants with recording ops
+(``rounds.forest_round_ops``) and returns the spanning forest beside the
+labels.
 
 The backend names are the reference's, so that code keyed on them reads
 the same in both packages. Every variant returns canonical labels
@@ -89,27 +90,39 @@ class ForestResult(NamedTuple):
 # Variants
 # ---------------------------------------------------------------------------
 
-def _cc_soman(edges: torch.Tensor, num_nodes: int,
-              true_edges=None) -> CCResult:
-    return _hook_jump_loop(edges, num_nodes, true_edges, count_syncs=True)
+def _cc_hook_rounds(edges: torch.Tensor, num_nodes: int, method: str,
+                    num_segments: int, lift_steps: int = 2, true_edges=None,
+                    ops: rounds.RoundOps | None = None) -> CCResult:
+    """The hook-round variants (``soman`` and ``multijump`` unlifted,
+    ``atomic_hook``, ``adaptive``) on ``ops``: each variant's torch ops
+    by default; ``solve_forest`` passes recording ops."""
+    if method in HOSTLOOP_METHODS:
+        return _hook_jump_loop(edges, num_nodes, true_edges,
+                               count_syncs=method == "soman", ops=ops)
+    if method == "atomic_hook":
+        return _cc_atomic_hook(edges, num_nodes, lift_steps, true_edges,
+                               ops=ops)
+    if method == "adaptive":
+        return _cc_adaptive(edges, num_nodes, num_segments, lift_steps,
+                            true_edges, ops=ops)
+    raise ValueError(f"unknown method {method!r}; choose from "
+                     f"{ALL_METHODS}")
 
 
-def _cc_multijump(edges: torch.Tensor, num_nodes: int,
-                  true_edges=None) -> CCResult:
-    return _hook_jump_loop(edges, num_nodes, true_edges, count_syncs=False)
-
-
-def _hook_jump_loop(edges, num_nodes, true_edges, count_syncs) -> CCResult:
+def _hook_jump_loop(edges, num_nodes, true_edges, count_syncs,
+                    ops: rounds.RoundOps | None = None) -> CCResult:
     """Unlifted hook rounds until a hook changes nothing, each followed
     by a full compress. Soman (``count_syncs``) bills one sync for the
     hook and one per jump sweep; multijump bills two syncs per round
-    (one hook kernel + one fused Multi-Jump kernel)."""
+    (one hook kernel + one fused Multi-Jump kernel). ``ops`` hooks
+    (unlifted torch ops by default; recording ops record the forest)."""
+    hook = (ops or rounds.torch_round_ops(0)).hook
     e = edges.shape[0] if true_edges is None else true_edges
     pi = torch.arange(num_nodes, dtype=torch.int32, device=edges.device)
     work = WorkCounters.zeros(edges.device)
     changed, n = True, 0
     while changed and n < _MAX_ROUNDS:
-        new_pi = hook_edges(pi, edges, lift_steps=0)
+        new_pi = hook(pi, edges)
         changed = bool((new_pi != pi).any())
         work = work.add(hook_ops=e, hook_rounds=1,
                         sync_rounds=1 if count_syncs else 2)
@@ -119,14 +132,14 @@ def _hook_jump_loop(edges, num_nodes, true_edges, count_syncs) -> CCResult:
 
 
 def _cc_atomic_hook(edges: torch.Tensor, num_nodes: int,
-                    lift_steps: int = 2, true_edges=None) -> CCResult:
+                    lift_steps: int = 2, true_edges=None,
+                    ops: rounds.RoundOps | None = None) -> CCResult:
     """The adaptive cleanup loop run from scratch over the whole
-    (single-segment) edge list; one sync (one fused device loop)."""
-    if true_edges is None:
-        true_edges = edges.shape[0]
+    (single-segment) edge list; one sync (one fused device loop).
+    ``ops``: torch ops with ``lift_steps`` by default."""
     pi0 = torch.arange(num_nodes, dtype=torch.int32, device=edges.device)
     pi, work = rounds.cleanup_rounds(
-        pi0, edges, rounds.torch_round_ops(lift_steps),
+        pi0, edges, ops or rounds.torch_round_ops(lift_steps),
         WorkCounters.zeros(edges.device), true_edges=true_edges)
     return CCResult(pi, work.add(sync_rounds=1))
 
@@ -204,19 +217,10 @@ def solve_static(
     if method == FUSED_METHOD:
         return _cc_adaptive(g.edges, g.num_nodes, s, lift_steps, true,
                             ops=rounds.fused_round_ops(lift_steps))
-    if method == "soman":
-        return _cc_soman(g.edges, g.num_nodes, true)
-    if method == "multijump":
-        return _cc_multijump(g.edges, g.num_nodes, true)
-    if method == "atomic_hook":
-        return _cc_atomic_hook(g.edges, g.num_nodes, lift_steps, true)
-    if method == "adaptive":
-        return _cc_adaptive(g.edges, g.num_nodes, s, lift_steps, true)
     if method == "labelprop":
         from repro_torch.core.labelprop import _cc_labelprop
         return _cc_labelprop(g.edges, g.num_nodes, true)
-    raise ValueError(f"unknown method {method!r}; choose from "
-                     f"{ALL_METHODS}")
+    return _cc_hook_rounds(g.edges, g.num_nodes, method, s, lift_steps, true)
 
 
 # ---------------------------------------------------------------------------
@@ -226,37 +230,14 @@ def solve_static(
 def _cc_forest(edges: torch.Tensor, num_nodes: int, method: str,
                num_segments: int, lift_steps: int = 2,
                true_edges=None) -> ForestResult:
-    """Forest-recording twin of the hook-round variants: the same π
-    updates and billing, with the parent-edge table threaded through
-    every hook."""
-    dev = edges.device
-    e = edges.shape[0] if true_edges is None else true_edges
-    pi = torch.arange(num_nodes, dtype=torch.int32, device=dev)
-    parents = rounds.empty_forest(num_nodes, dev)
-    work = WorkCounters.zeros(dev)
-    if method in ("soman", "multijump"):
-        count_syncs = method == "soman"
-        changed, n = True, 0
-        while changed and n < _MAX_ROUNDS:
-            new_pi, parents = rounds.hook_edges_forest(pi, parents, edges,
-                                                       lift_steps=0)
-            changed = bool((new_pi != pi).any())
-            work = work.add(hook_ops=e, hook_rounds=1,
-                            sync_rounds=1 if count_syncs else 2)
-            pi, work = compress(new_pi, work, count_syncs=count_syncs)
-            n += 1
-        return ForestResult(pi, parents, work)
-    if method == "atomic_hook":
-        pi, parents, work = rounds.forest_cleanup_rounds(
-            pi, parents, edges, work, true_edges=e, lift_steps=lift_steps)
-        return ForestResult(pi, parents, work.add(sync_rounds=1))
-    if method == "adaptive":
-        plan = plan_segmentation(edges.shape[0], num_nodes, num_segments)
-        pi, parents, work = rounds.forest_adaptive_rounds(
-            edges, num_nodes, plan, lift_steps=lift_steps, true_edges=e)
-        return ForestResult(pi, parents, work.add(sync_rounds=1))
-    raise ValueError(f"unknown forest method {method!r}; choose from "
-                     f"{FOREST_METHODS}")
+    """``_cc_hook_rounds`` with recording ops: the same π updates and
+    billing, with the parent-edge table recorded as they hook."""
+    ops = rounds.forest_round_ops(
+        rounds.empty_forest(num_nodes, edges.device),
+        lift_steps=0 if method in HOSTLOOP_METHODS else lift_steps)
+    res = _cc_hook_rounds(edges, num_nodes, method, num_segments,
+                          lift_steps, true_edges, ops=ops)
+    return ForestResult(res.labels, ops.tables()[0], res.work)
 
 
 def solve_forest(graph, num_nodes: int | None = None,

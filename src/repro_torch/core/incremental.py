@@ -307,11 +307,12 @@ class DynamicCC(IncrementalCC):
         true_count = torch.tensor(t, dtype=torch.int32, device=self.device)
         eids = torch.arange(rows_before, rows_before + t, dtype=torch.int32,
                             device=self.device)
-        new_pi, self._parents, self._parent_eidx, work = \
-            rounds.forest_cleanup_rounds_ids(
-                self._pi, self._parents, self._parent_eidx,
-                delta.edges[:t], eids, WorkCounters.zeros(self.device),
-                true_edges=t, lift_steps=self.lift_steps)
+        ops = rounds.forest_round_ops(self._parents, self._parent_eidx,
+                                      lift_steps=self.lift_steps)
+        new_pi, work = rounds.cleanup_rounds(
+            self._pi, delta.edges, ops, WorkCounters.zeros(self.device),
+            true_edges=t, edge_ids=eids)
+        self._parents, self._parent_eidx = ops.tables()
         work = work.add(sync_rounds=1)
         self._version = _bump(self._version, new_pi, self._pi)
         self._pi = new_pi
@@ -408,11 +409,12 @@ class DynamicCC(IncrementalCC):
 
     def ensure_forest(self) -> None:
         """Re-derive the maintained forest from the surviving log if a
-        bulk route staled it: the Fig. 4 pipeline with id-recording
-        hooks over the packed alive rows. Its labels are canonical and
-        equal the live state's, so the version does not tick. Counts
-        into ``dynamic.deletes.rebuild``; its span's ``loop`` tag says
-        where the scan's sweeps run (``rounds.forest_scan_loop``)."""
+        bulk route staled it: ``rounds.forest_scan_rounds_ids`` over the
+        packed alive rows, in the adaptive plan's segments. Its labels
+        are canonical and equal the live state's, so the version does
+        not tick. Counts into ``dynamic.deletes.rebuild``; its span's
+        ``loop`` tag says where the scan's sweeps run
+        (``rounds.forest_scan_loop``)."""
         if self._forest_valid:
             return
         with obs.span("dyn.forest.rebuild") as sp:
@@ -422,15 +424,12 @@ class DynamicCC(IncrementalCC):
             packed, pids, true = rounds.pack_edge_rows(
                 edges, torch.arange(e, dtype=torch.int32, device=dev), alive)
             plan = plan_segmentation(e, n, adaptive_num_segments(e, n))
-            pi, parents, eidx, work = rounds.forest_segment_scan_ids(
+            pi, parents, eidx, work = rounds.forest_scan_rounds_ids(
                 torch.arange(n, dtype=torch.int32, device=dev),
                 rounds.empty_forest(n, dev), rounds.empty_forest_idx(n, dev),
-                packed, pids, plan.segment_size, WorkCounters.zeros(dev),
-                rounds.segment_true_counts(true, plan),
-                lift_steps=self.lift_steps, span=sp)
-            pi, parents, eidx, work = rounds.forest_cleanup_rounds_ids(
-                pi, parents, eidx, packed[:true], pids[:true], work,
-                true_edges=true, lift_steps=self.lift_steps)
+                packed, pids, true, WorkCounters.zeros(dev),
+                lift_steps=self.lift_steps, segment_size=plan.segment_size,
+                num_segments=plan.num_segments, span=sp)
             self._pi, self._parents, self._parent_eidx = pi, parents, eidx
             self._queue_work(work.add(sync_rounds=1))
         self._forest_valid = True

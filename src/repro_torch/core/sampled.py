@@ -16,9 +16,9 @@ only has to cover the small residue. Two phases:
   different labels, packs those rows into a (0, 0)-padded prefix (one
   stable sort; row order decides which edge lands in which segment) and
   runs the Fig. 4 segment scan and cleanup over them from the sampled
-  labels, billing the residue count only. ``fused=True`` runs it on the
-  fused segment-scan kernel (``sampled_fused``), which records no
-  forest; otherwise it runs the forest-recording torch ops.
+  labels, billing the residue count only. ``fused=True`` runs it with
+  the fused segment-scan kernel's ops (``sampled_fused``), which record
+  no forest; otherwise with recording torch ops.
 
 Work: the sample phase bills valid slots x (1 + lift_steps) hook
 evaluations per round; the residue scan bills true residue edges.
@@ -87,14 +87,15 @@ def _sample_phase(edges: torch.Tensor, true_edges: int, num_nodes: int,
     n_sampled = valid.sum(dtype=torch.int32)
 
     pi = torch.arange(num_nodes, dtype=torch.int32, device=dev)
-    parents = rounds.empty_forest(num_nodes, dev)
+    ops = rounds.forest_round_ops(rounds.empty_forest(num_nodes, dev),
+                                  lift_steps=lift_steps)
     work = WorkCounters.zeros(dev)
     bill = n_sampled * (1 + lift_steps)
     for _ in range(sample_rounds):
-        pi, parents = rounds.hook_edges_forest(pi, parents, sampled,
-                                               lift_steps=lift_steps)
+        pi = ops.hook(pi, sampled)
         work = work.add(hook_ops=bill, hook_rounds=1)
         pi, work = rounds.compress(pi, work)
+    (parents,) = ops.tables()
 
     census = component_census(pi)
     giant = torch.argmax(census).to(torch.int32)    # ties: first index
@@ -118,20 +119,16 @@ def _residue_scan(edges: torch.Tensor, true_edges: int, pi: torch.Tensor,
     order = torch.argsort((~live).to(torch.uint8), stable=True)
     packed = torch.where(live[order][:, None], edges[order], 0)
     plan = plan_segmentation(e, num_nodes, num_segments)
-    segments = rounds.pad_and_segment(packed, plan)
     n = int(n_res)
-    counts = rounds.segment_true_counts(n, plan, device=dev)
-    flat = segments.reshape(-1, 2)
-    if fused:
-        ops = rounds.fused_round_ops(lift_steps)
-        pi, work = rounds.segment_scan(pi, segments, ops, work,
-                                       true_counts=counts)
-        pi, work = rounds.cleanup_rounds(pi, flat, ops, work, true_edges=n)
-    else:
-        pi, parents, work = rounds.forest_segment_scan(
-            pi, parents, segments, work, counts, lift_steps=lift_steps)
-        pi, parents, work = rounds.forest_cleanup_rounds(
-            pi, parents, flat, work, true_edges=n, lift_steps=lift_steps)
+    ops = rounds.fused_round_ops(lift_steps) if fused \
+        else rounds.forest_round_ops(parents, lift_steps=lift_steps)
+    pi, work = rounds.segment_scan(
+        pi, packed, ops, work,
+        rounds.segment_true_counts(n, plan, device=dev),
+        segment_size=plan.segment_size)
+    pi, work = rounds.cleanup_rounds(pi, packed, ops, work, true_edges=n)
+    if ops.tables is not None:
+        (parents,) = ops.tables()
     return pi, parents, work, n_res
 
 

@@ -45,10 +45,11 @@ def ref_forest_scan(pi: torch.Tensor, parents: torch.Tensor,
     for i, cnt in enumerate(true_counts.tolist()):
         rows = slice(i * segment_size, i * segment_size + cnt)
         if cnt:
-            pi, hi, rec = rounds._forest_hook(pi, edges[rows], lift_steps)
-            parents.copy_(rounds._record_rows(parents, hi, rec, edges[rows]))
-            parent_eidx.copy_(rounds._record_rows(parent_eidx, hi, rec,
-                                                  edge_ids[rows]))
+            pi, p, e = rounds.hook_edges_forest_ids(
+                pi, parents, parent_eidx, edges[rows], edge_ids[rows],
+                lift_steps)
+            parents.copy_(p)
+            parent_eidx.copy_(e)
         pi, n = rounds.jacobi_sweeps(pi, fuel)
         sweeps.append(n)
     return pi, torch.tensor(sweeps, dtype=torch.int32, device=pi.device)
